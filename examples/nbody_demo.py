@@ -1,6 +1,6 @@
 """Run the reference simulation end-to-end and dump the final state.
 
-The TPU equivalent of the reference's default workload: uniform fill of
+The JAX equivalent of the reference's default workload: uniform fill of
 ``n_fill`` particles in the 16^3-cell box, then ``--iters`` iterations of
 the fused CALC_FORCES step (age death -> collision kill/survive -> 27-cell
 softened gravity -> clamped Euler -> torus wrap -> aging -> explosion

@@ -1,7 +1,7 @@
 // psnative — native runtime support for particlesystem_tpu.
 //
 // The reference's runtime is native C++ (the Unicorn/pmlib scheduler plus the
-// host orchestration in source/code/src/particleSystem.cpp).  The TPU compute
+// host orchestration in source/code/src/particleSystem.cpp).  The device compute
 // path here is JAX/XLA/Pallas; this library supplies the host-side runtime
 // pieces that stay native:
 //

@@ -1,9 +1,10 @@
-"""particlesystem_tpu — a TPU-native particle-simulation framework.
+"""particlesystem_tpu — a JAX particle-simulation framework.
 
-Built from scratch with JAX/XLA/Pallas to provide the capabilities of the
-reference CUDA/MPI particle system (abraj/particleSystem on the Unicorn/pmlib
-runtime) with a TPU-first design.  See SURVEY.md for the blueprint and
-BASELINE.md for the performance targets.
+Built with JAX/XLA and a Pallas (Triton) neighbor kernel to provide the
+capabilities of the reference CUDA/MPI particle system
+(abraj/particleSystem on the Unicorn/pmlib runtime); it runs on NVIDIA GPUs
+and, for tests, on the CPU.  See SURVEY.md for the blueprint and
+BASELINE.md for the scene configurations.
 """
 
 from .core import (Emitter, EmitterSceneConfig, GridSpec, NBodyConfig,

@@ -12,22 +12,6 @@ import argparse
 import sys
 
 
-def _resolve_batch(args) -> int:
-    """``--batch 0`` auto-resolves inside ``run()``; but ``--validate``
-    needs the single-step program shape, which on single-Pallas-shape
-    platforms (utils/dispatchbug.py) cannot coexist with the batched-loop
-    shape when the step carries the Pallas kernel — fall back to per-frame
-    mode there so run+validate both work in one process."""
-    if args.batch == 0 and args.validate and args.impl == "blocks":
-        from .utils.dispatchbug import multi_pallas_shapes_safe
-        if not multi_pallas_shapes_safe():
-            print("note: --validate shares the per-frame program shape and "
-                  "this platform allows one Pallas shape per process — "
-                  "running with --batch 1")
-            return 1
-    return args.batch
-
-
 def _cmd_nbody(args):
     from .core.config import GridSpec, NBodyConfig
 
@@ -39,7 +23,7 @@ def _cmd_nbody(args):
     from .api import NBodySimulation
 
     sim = NBodySimulation(cfg, impl=args.impl)
-    sim.run(args.iterations, verbose=True, batch=_resolve_batch(args))
+    sim.run(args.iterations, verbose=True, batch=args.batch)
     if args.validate:
         print(f"validate: {sim.validate()}")
     if args.save:
@@ -82,7 +66,7 @@ def _run_nbody_sharded(args, cfg):
     if args.autosize:
         print(f"autosized buffers: {sim.autosize_buffers()}")
     stats = sim.run(args.iterations, verbose=True,
-                    batch=_resolve_batch(args))
+                    batch=args.batch)
     print(f"final: alive={stats['n_alive']} "
           f"degraded_batches={sim.n_degraded_frames}")
     if args.validate:

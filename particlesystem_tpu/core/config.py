@@ -108,14 +108,6 @@ class NBodyConfig:
 
     seed: int = 1
     spawn_budget: int = 0      # 0 -> derived: max children per frame
-    # MXU-offloaded force accumulation in the cluster-pair kernel
-    # (ops/neighbor_blocks.py): the per-chunk axis=1 sum-reductions become
-    # one HIGHEST-precision matmul with block-origin recentering.  18%
-    # faster at 1M steady state on v5e; costs <=2e-5 relative accumulation
-    # error from the (sum) - m*(sum) cancellation (measured; discrete
-    # collision/kill outcomes are unaffected — they ride the exact int-max
-    # path).  Set False for accumulation-order-conservative runs.
-    fast_accum: bool = True
 
     # --- derived lifecycle ages (common.h:59-63) -------------------------
     @property
@@ -145,7 +137,7 @@ class NBodyConfig:
 
         Replaces ``CONTAINER_SIZE`` (``common.h:32``): the reference reserves
         ~3x via the segmented-container algebra; we reserve ``x_factor``x flat
-        and round up to a TPU-friendly multiple of 1024.
+        and round up to a multiple of 1024.
         """
         if self.capacity:
             return self.capacity
@@ -154,8 +146,8 @@ class NBodyConfig:
     @property
     def max_spawns_per_frame(self) -> int:
         """Static cap on explosion children per frame.  Keeps the spawn
-        scatter small (a scatter with N update rows costs ~45 ms at 2M slots
-        on v5e regardless of how few rows actually write).  The reference
+        scatter small (a scatter costs as much as its update rows, however
+        few of them actually write).  The reference
         has no such cap, but spawns are bounded by free-slot availability
         there too; the numpy oracle applies the same cap so parity holds."""
         if self.spawn_budget:
@@ -167,7 +159,7 @@ class NBodyConfig:
         """Per-cell particle cap; overflow kills the particle
         (``particleSystem.cpp:1517-1531``).  Formula mirrors
         ``MAX_PARTICLES_PER_CELL = ((N/NUM_CELLS)+1)*X_FACTOR``
-        (``common.h:22``), rounded up to a multiple of 8 for TPU lanes."""
+        (``common.h:22``), rounded up to a multiple of 8."""
         if self.max_per_cell:
             return self.max_per_cell
         raw = (self.n_fill // self.grid.num_cells + 1) * self.x_factor
@@ -231,8 +223,8 @@ class EmitterSceneConfig:
     """Emitter/force-stack scene (BASELINE configs 1-5).
 
     ``capacity`` is the static slot count; dead slots are recycled on device
-    by prefix-sum compaction (the TPU replacement for the reference's
-    per-segment free-id queues, ``app_common.cu:305-429``).
+    by prefix-sum compaction (the data-parallel replacement for the
+    reference's per-segment free-id queues, ``app_common.cu:305-429``).
     """
 
     capacity: int = 1 << 17

@@ -2,10 +2,10 @@
 
 The reference stores particles as a 72-byte array-of-structs
 (``P_DATA_TYPE``, ``/root/reference/source/code/inc/common.h:94-120``) inside
-a segmented container whose slot index encodes spatial ownership.  On TPU the
-natural layout is a flat SoA of device arrays with a static slot count:
-vectorized loads, XLA fusion across fields, and no id<->segment coupling
-(cells are recomputed from positions each frame).
+a segmented container whose slot index encodes spatial ownership.  On an
+accelerator the natural layout is a flat SoA of device arrays with a static
+slot count: vectorized loads, XLA fusion across fields, and no id<->segment
+coupling (cells are recomputed from positions each frame).
 
 The reference's snapshot buffer ``T_DATA_TYPE`` (``common.h:122-132``) —
 double-buffering so neighbor reads see the previous frame — is implicit here:

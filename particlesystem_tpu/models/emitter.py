@@ -6,7 +6,7 @@ Single fused jitted step over the SoA state:
     collision response -> aging/lifetime death -> emitter spawn into
     recycled dead slots (prefix-sum compaction).
 
-This is the TPU-native counterpart of the reference's whole per-frame
+This is the data-parallel counterpart of the reference's whole per-frame
 pipeline (INIT_IFRAME -> BUILD_GRID -> CALC_FORCES waves,
 ``/root/reference/source/code/src/particleSystem.cpp:1843-1911``) for scenes
 without pairwise interactions: one ``jit`` call, no host round trips — the
@@ -16,7 +16,7 @@ every statistic stays on device.
 Randomness is factored out of the physics: :func:`spawn_fields` derives all
 per-frame spawn rows from counter-based keys, and :func:`step_core` is a
 deterministic function of (state, spawn rows).  The numpy oracle consumes
-identical spawn rows, so CPU/TPU trajectory comparison isolates physics.
+identical spawn rows, so host-vs-device trajectory comparison isolates physics.
 """
 
 from __future__ import annotations

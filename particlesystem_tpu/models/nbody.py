@@ -1,4 +1,4 @@
-"""The reference particle simulation, TPU-native.
+"""The reference particle simulation as one jitted step.
 
 One pure jitted step reproduces the semantics of the reference's per-frame
 pipeline (``/root/reference/source/code/src/particleSystem.cpp``):
@@ -159,8 +159,8 @@ def lifecycle_update(state: ParticleState, pos_w: jax.Array,
     vel = jnp.where(explode[:, None], evel, vel)
 
     # Children: compact requests and free slots to a static budget first so
-    # every scatter has only E update rows (an N-row scatter costs ~45 ms at
-    # 2M slots on v5e even when almost all rows drop).  Ascending parents
+    # every scatter has only E update rows (an N-row scatter costs as much
+    # as its update rows even when almost all rows drop).  Ascending parents
     # meet ascending free slots, as before; children beyond the per-frame
     # budget are dropped (mirrored by the oracle).
     #
@@ -205,10 +205,8 @@ def lifecycle_update(state: ParticleState, pos_w: jax.Array,
     ], axis=1)                                  # (N, 16)
 
     def spawn_into(e_sz: int):
-        """ONE combined (e_sz, 8) row gather + ONE (e_sz, 16) row scatter:
-        gather/scatter cost on v5e is per update-ROW (~30-90 ns each)
-        regardless of row width, so the per-field gathers and nine field
-        scatters each collapse ~8x into single wide-row ops.  Bools ride
+        """ONE combined (e_sz, 8) row gather + ONE (e_sz, 16) row scatter
+        instead of per-field gathers and nine field scatters.  Bools ride
         as 0/1 f32, the uint32 tag as an exact bitcast."""
         def apply(b):
             ok_row = jnp.arange(e_sz, dtype=jnp.int32) < k
@@ -289,16 +287,14 @@ def step_fields(state: ParticleState, uvec: jax.Array, fert: jax.Array,
 
     # --- CALC_FORCES: neighbor pass on the pre-step snapshot -------------
     if impl == "blocks":
-        # cluster-pair Pallas kernel: no cell lists, work scales with live
-        # particles (ops/neighbor_blocks.py); chunk drops (stencil exceeded
-        # the per-block budget -> interactions lost) surface as
-        # n_listed_dropped, same meaning as the dense pass's list overflow
+        # cluster-pair kernel: no cell lists, work scales with live
+        # particles, and no interaction is ever dropped
+        # (ops/neighbor_blocks.py)
         from ..ops.neighbor_blocks import neighbor_pass_blocks
-        acc, kill, touch, overflow, max_occ, cell_counts, chunks_dropped = \
+        acc, kill, touch, overflow, max_occ, cell_counts = \
             neighbor_pass_blocks(state.pos, state.age, state.w, cell,
-                                 state.alive, cfg, tags=state.tag,
-                                 acc_mxu=cfg.fast_accum)
-        listed_dropped = chunks_dropped.astype(jnp.int32)
+                                 state.alive, cfg, tags=state.tag)
+        listed_dropped = jnp.int32(0)
     else:
         bins = build_bins(cell, state.alive, grid.num_cells,
                           cfg.cell_capacity, list_width=list_width)
@@ -365,7 +361,7 @@ def pick_active(cfg: NBodyConfig, alive: int,
 def compact_state(state: ParticleState) -> ParticleState:
     """Stable-partition alive rows to the slot prefix (slot order preserved
     within each class) — ONE carrying sort by ``slot + dead*N`` moving all
-    state columns (~25 ms at 2M on v5e; a row scatter would cost 170+).
+    state columns (no row scatter).
 
     Slot re-numbering no longer perturbs physics: collision ordering keys
     on the persistent tags (which ride the sort), and slot ids only serve
@@ -402,8 +398,8 @@ def step(state: ParticleState, frame: jax.Array, cfg: NBodyConfig,
          list_width: int = 0, impl: str = "dense", active: int = 0):
     """Full frame: per-frame random fields + physics.
 
-    ``impl="blocks"`` uses the cluster-pair Pallas kernel (fastest; work
-    scales with live particles).  ``impl="dense"`` is the XLA cell-pair
+    ``impl="blocks"`` uses the cluster-pair kernel (fastest; work scales
+    with live particles).  ``impl="dense"`` is the XLA cell-pair
     pass; its ``list_width`` (static) narrows the padded neighbor lists —
     cost is O(width^2), so size it from the previous frame's
     ``max_cell_occupancy`` (see ``api.NBodySimulation``) and keep

@@ -1,6 +1,6 @@
 """Dead-slot recycling via prefix-sum compaction.
 
-TPU-native replacement for the reference's per-segment circular free-id
+Data-parallel replacement for the reference's per-segment circular free-id
 queues (``QUEUE_INFO`` + ``q_remove``/``q_insert``,
 ``/root/reference/source/code/inc/app_common.cu:305-429``), including the
 warp-serialized atomicCAS spin-locks of the GPU path (:383-429) — all of

@@ -1,21 +1,16 @@
 """Fused physics step over separate per-field arrays — the hot path.
 
 State layout: ``fields = (x, y, z, vx, vy, vz, age, life)``, eight separate
-contiguous ``(N,)`` f32 arrays.  Measured on a v5e chip at 10M particles,
-XLA's own fusion streams this at ~860 GB/s (1.3e10 particle-steps/s) —
-3x faster than the same math as a hand-written Pallas kernel over (8, BLOCK)
-tiles and 6x faster than a single (8, N) packed array, whose row-strided
-DMA caps at ~130 GB/s.  Elementwise streaming is exactly what the XLA
-fusion engine is best at; Pallas is reserved for the patterns XLA cannot
-express (see ``ops/pallas_step.py``, kept for comparison benchmarks).
+contiguous ``(N,)`` f32 arrays.  The step is elementwise streaming, which
+XLA's own fusion handles without a hand-written kernel.
 
-Physics semantics identical to ``models/emitter.step_core`` /
-``ops/pallas_step._step_kernel`` — forces (gravity/wind/drag), semi-implicit
-Euler, plane/sphere contact response, aging, dead-row freeze.
+Physics semantics identical to ``models/emitter.step_core`` — forces
+(gravity/wind/drag), semi-implicit Euler, plane/sphere contact response,
+aging, dead-row freeze.
 
 Recycling: ``ring_spawn`` (O(S) ring allocator with a shadow region) and
-``refresh_free_list``/``spawn_exact`` (exact dead-slot compaction) — the TPU
-replacements for the reference's per-segment free-id queues
+``refresh_free_list``/``spawn_exact`` (exact dead-slot compaction) — the
+data-parallel replacements for the reference's per-segment free-id queues
 (``/root/reference/source/code/inc/app_common.cu:305-429``).
 """
 
@@ -120,12 +115,9 @@ def physics_step_slim(fields: Tuple[jax.Array, ...],
     positions, so garbage stays finite; the ring allocator overwrites every
     field at respawn.
 
-    The ``death > 0`` select is ALSO a measured codegen requirement, not
-    just semantics: emitting each output as ``select(mask, new, old)``
-    (packed8's shape) keeps XLA's TPU loop-fusion planner on the single-
-    pass schedule.  The maskless form compiles to a 3-fusion split that
-    materializes intermediates — 2.27 ms vs 0.72 ms per frame at 10M slots
-    on v5e (fori_loop unroll=2; see NOTES.md round-3 slim study).
+    Emitting each output as ``select(mask, new, old)`` (packed8's shape)
+    also keeps the step one fusion; a maskless form has been seen to split
+    into several fusions that materialize intermediates.
     """
     x, y, z, vx, vy, vz, death = fields
     new = integrate6(x, y, z, vx, vy, vz, cfg)
@@ -264,12 +256,10 @@ def select_spawn(fields: Fields, rows: Fields, valid: jax.Array,
     strided recycling semantics with the write expressed as pure
     elementwise ops so it fuses INTO the physics pass.
 
-    Why not ``dynamic_update_slice``: on TPU any DUS of a W-row window into
-    the big 1-D field arrays costs a full extra copy pass (~0.33 ms at 10M
-    slots on v5e) because XLA materializes the physics fusion and then the
-    DUS re-copies every array — measured identical for static offsets and
-    write-only forms, while reshaping to 2-D at the op boundary adds ~0.7 ms
-    of layout copies (tools/probe_spawn_overhead.py).  Keeping the state 2-D
+    Why not ``dynamic_update_slice``: a DUS of a W-row window into the big
+    1-D field arrays can make XLA materialize the physics fusion and then
+    re-copy every array, and reshaping to 2-D at the op boundary adds
+    layout copies.  Keeping the state 2-D
     makes the write window exactly row ``cursor/W``, so
     ``where(b==lap & valid[j], row[j], physics[b,j])`` — one (B,1) iota
     compare and a (1,W) broadcast of the spawn rows — is all that is left,

@@ -1,37 +1,42 @@
-"""Cluster-pair neighbor kernel (Pallas): sorted particle blocks vs DMA'd
-neighbor chunks.
+"""Cluster-pair neighbor kernel (Pallas, Triton route): sorted particle
+blocks against contiguous neighbor ranges.
 
 The dense cell-pair pass (``ops/neighbor.py``) pads every cell to a static
 width, so its cost is O(cells * 27 * width^2) regardless of real occupancy.
-This kernel works in *sorted particle order* instead (the classic
-cluster-pair design of GPU molecular dynamics, adapted to the TPU memory
-system):
+This kernel works in *sorted particle order* instead (the cluster-pair
+design of GPU molecular dynamics):
 
-* particles are sorted by cell id (dead last); a *block* is B consecutive
-  sorted rows — work scales with LIVE particles, not cells;
-* XLA precomputes, per block, a flat list of up to C_MAX aligned CH-column
-  *chunks* covering the block's stencil: cells with consecutive i2 are
-  adjacent in memory, so each (i1 row, i3 plane) of the stencil is one
-  contiguous range of sorted rows, split into 128-aligned chunks;
-* the kernel streams the chunk list through VMEM with double-buffered async
-  DMA, computing (B, CH) pairwise tiles on the VPU.  Per-pair cell-delta
-  masks restore exact 27-stencil semantics (``fill_cells`` dist^2 <= 3
-  filter, ``/root/reference/source/code/inc/app.cu:352-409`` — for integer
-  deltas that IS the 3x3x3 cube): collision flags (``bodyBodyCollision``,
+* particles are sorted by cell id (dead last); a *block* is ``b``
+  consecutive sorted rows, one Triton program each — work scales with LIVE
+  particles, not cells;
+* XLA precomputes, per block, the 9 contiguous row ranges covering its
+  stencil: cells with consecutive i2 are adjacent in memory, so each
+  (i1 row, i3 plane) offset of the stencil is one contiguous range of
+  sorted rows;
+* the program loops over its 9 ranges and walks each in ``t``-column
+  tiles, computing (b, t) pairwise tiles in registers (Triton pipelines
+  the tile loads, ``num_stages``).  The tiles accumulate elementwise into
+  (b, t) register accumulators that are reduced over columns once per
+  block, not once per tile.  Per-pair cell-delta masks restore exact
+  27-stencil semantics (``fill_cells`` dist^2 <= 3 filter,
+  ``/root/reference/source/code/inc/app.cu:352-409`` — for integer deltas
+  that IS the 3x3x3 cube): collision flags (``bodyBodyCollision``,
   ``app_common.cu:269-301``, larger id survives) and Plummer gravity
   (``bodyBodyInteraction``, ``app_common.cu:236-267``).
 
-Snapshot layout: one (16, N_pad) f32 array — rows x, y, z, pad, i1, i2,
-i3, pad, gid (int32 BITCAST to f32: exact at any slot count; pair
-self-exclusion identity), age, w, w*x, w*y, w*z, cgid (the
-collision-ORDER key: ``collision_okey`` of the persistent particle tag,
-placement-independent — INT32_MIN bits past ``particle_life``; the
-kid/dead gates ride the out-of-band coordinates), pad — so a chunk is ONE
-strided DMA and every per-pair quantity lives in lane-major (B, CH) tiles.
+The range list has no capacity: a block's 9 ranges cover its stencil
+whatever the occupancy, so no interaction is ever dropped.
+
+Snapshot layout: one (9, N + t) f32 array, rows ``X..CG`` below — x, y, z,
+i1, i2, i3, w, gid (int32 BITCAST to f32: exact at any slot count; pair
+self-exclusion identity), cgid (the collision-ORDER key: ``collision_okey``
+of the persistent particle tag, placement-independent — INT32_MIN bits
+past ``particle_life``; the kid/dead gates ride the out-of-band
+coordinates).  Each snapshot row of a tile is one contiguous load.
 
 **All gating is folded into the snapshot so the kernel's only per-pair
-tests are the cell-delta stencil, the id inequality and the contact
-radius** (measured: every extra (B, CH) mask op costs full VPU lanes):
+tests are the cell-delta stencil, the id inequality, the range end and the
+contact radius:**
 
 * rows that fail the sorted-side validity test (dead, past the per-cell
   cap) AND rows outside the adult gravity window (age < kid_age — kids
@@ -61,53 +66,53 @@ unsort.  The order key is the TAG-derived ``collision_okey`` (see
 ``ops/neighbor.py``): identical on 1 and N devices, so multi-device
 kill/survive tie-breaks match the single-device run exactly.
 
-Capacity escapes are reported, never silent: blocks whose stencil needs
-more than C_MAX chunks drop the excess.  :func:`neighbor_pass_blocks`
-returns the count as ``n_chunks_dropped`` and callers surface it through
-``NBodyStats.n_listed_dropped`` (C_MAX covers the worst observed occupancy
-~3x; a nonzero count means forces were truncated — rerun with a larger
-``c_max``).
+The kernel compiles for CUDA; on the CPU backend (tests) it runs in the
+Pallas interpreter.  Any other backend raises rather than interpreting
+silently.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Tuple
 
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from ..core.config import NBodyConfig
 from .neighbor import collision_okey
 
-B = 512        # block rows per grid step (swept at 1M steady state on v5e:
-               # b256 108.6 ms, b512 88.0 ms full pass; bigger blocks
-               # amortize DMA + per-block fixed cost)
-CH = 1024      # neighbor chunk columns per DMA (ch512 is 37% slower)
-DEPTH = 2      # DMA pipeline slots (in-flight chunk fetches = DEPTH - 1)
-ACC_WIDE = False  # accumulate (B, CH) tiles, reduce once per block
-TS = None      # column-subtile width: compute ceil(hi/TS) subtiles per chunk
-               # instead of all CH columns (None = full tile).  A chunk's
-               # valid columns are [lo, hi) with lo < 128; the tail
-               # [hi, CH) is pure candidate-packing waste (~25% at the
-               # steady-state range width ~700).  Must divide CH and be a
-               # multiple of 128 (dynamic lane-dim slices need alignment).
-R_MAX = 24     # static neighbor-range slots per block
-C_MAX = 48     # static chunk slots per block
+# Tile shape, swept on an H100 at the 1M/16^3 and 10M/32^3 plateau states
+# (PERF.md): a (b, t) tile holds b*t/(32*NUM_WARPS) elements of every
+# per-pair temporary in each thread's registers, and past ~8 the kernel
+# spills.
+B = 32          # sorted rows per program (power of two)
+T = 32          # candidate columns per tile (power of two)
+NUM_WARPS = 4
+NUM_STAGES = 2
+N_RANGES = 9    # one contiguous range per (i1, i3) stencil offset
+# snapshot rows
+X, Y, Z, I1, I2, I3, W, GID, CG = range(9)
 # Python int, NOT jnp.int32: a module-level concrete jax scalar gets its
 # aval stamped with the first shard_map manual mesh that eagerly touches it
 # (jax 0.9), and `-_BIG` then fails trace under any OTHER mesh in the same
-# process ("context mesh should match the aval mesh", seen when the brick
-# parity test followed the slab one).  As a literal it re-enters each trace
-# fresh.
+# process ("context mesh should match the aval mesh").  As a literal it
+# re-enters each trace fresh.
 _BIG = 1 << 30
 _IMIN = jnp.iinfo(jnp.int32).min
 
 
 def _interpret() -> bool:
-    return jax.default_backend() != "tpu"
+    """Interpret on the CPU (tests), compile on the GPU; nothing else."""
+    backend = jax.default_backend()
+    if backend == "cpu":
+        return True
+    if backend == "gpu":
+        return False
+    raise NotImplementedError(
+        f"the cluster-pair kernel runs on 'gpu' (or interpreted on 'cpu'), "
+        f"not on {backend!r}; use impl='dense'")
 
 
 # ---------------------------------------------------------------------------
@@ -116,8 +121,7 @@ def _interpret() -> bool:
 
 
 def prepare(pos0, age0, w0, cell, alive, cfg: NBodyConfig, dims=None,
-            ids=None, tags=None, c_max: int | None = None,
-            ch: int | None = None, b: int | None = None):
+            ids=None, tags=None, b: int = B, t: int = T):
     """Sort by cell and build the kernel inputs.
 
     ``dims = (d1, d2, d3)`` generalizes to non-cubic grids (cell id =
@@ -127,20 +131,14 @@ def prepare(pos0, age0, w0, cell, alive, cfg: NBodyConfig, dims=None,
     across every row the kernel sees, halos included).  ``tags`` supplies
     the persistent per-particle identities whose :func:`collision_okey`
     decides kill/survive ordering — placement- and device-count-
-    independent (``None`` falls back to ordering on ``ids``, the legacy
-    slot order, for perf probes).  ``c_max`` overrides the static
-    per-block chunk budget (tests use tiny values to exercise the
-    drop-report path); ``ch``/``b`` override the chunk-column / block-row
-    tile sizes.
+    independent (``None`` falls back to ordering on ``ids``).  The row
+    count must be a multiple of ``b``; ``t`` is the snapshot's tail pad.
 
-    Returns (snap (16, N+ch), chunks (NB, c_max, 4) int32 — columns
-    (aligned_start, lo, hi, n_active) — order, overflow_s (SORTED-side
-    per-cell-cap overflow; ride it through the unsort carry),
-    max_cell_occupancy, per-cell counts, n_chunks_dropped).
+    Returns (snap (9, N+t), ranges (NB, 9, 2) int32 — (first row, row
+    count) per stencil offset — order, overflow_s (SORTED-side per-cell-cap
+    overflow; ride it through the unsort carry), max_cell_occupancy,
+    per-cell counts).
     """
-    c_max = C_MAX if c_max is None else c_max
-    ch = CH if ch is None else ch
-    b = B if b is None else b
     g = cfg.grid.grid_dim
     d1, d2, d3 = dims or (g, g, g)
     num_cells = d1 * d2 * d3
@@ -155,26 +153,23 @@ def prepare(pos0, age0, w0, cell, alive, cfg: NBodyConfig, dims=None,
     gid_i = iot if ids is None else ids.astype(jnp.int32)
     gid_bits = jax.lax.bitcast_convert_type(gid_i, f)  # exact at ANY count
     # collision-order key: persistent tags (placement-independent total
-    # order — identical on 1 and N devices) when given, slot order for
-    # legacy perf probes.  Gated HERE by the neighbor-side collision age
-    # window's upper edge (age <= life); the kid/dead/overflow gates ride
-    # the out-of-band coordinates below, so the kernel's stencil test
-    # rejects those rows with zero extra ops either way.
+    # order — identical on 1 and N devices) when given, slot order
+    # otherwise.  Gated HERE by the neighbor-side collision age window's
+    # upper edge (age <= life); the kid/dead/overflow gates ride the
+    # out-of-band coordinates below, so the kernel's stencil test rejects
+    # those rows with zero extra ops either way.
     okey_i = (collision_okey(tags) if tags is not None
               else jnp.maximum(gid_i, _IMIN + 1))
     cg_pre = jnp.where(age0 <= jnp.float32(cfg.particle_life), okey_i, _IMIN)
     cg_bits = jax.lax.bitcast_convert_type(cg_pre, f)
 
-    # ONE carrying sort builds the whole sorted snapshot: a row scatter or
-    # gather costs 45-190 ms at 2M rows on v5e, while lax.sort moving the
-    # payload through the sort network is ~2 ms/column.  Cell coords are
+    # ONE carrying sort builds the whole sorted snapshot; cell coords are
     # re-derived from the sorted key instead of being carried.
     skey, sx, sy, sz, sgid, sage, sw, scg, order = jax.lax.sort(
         (key, pos0[:, 0], pos0[:, 1], pos0[:, 2], gid_bits, age0, w0,
          cg_bits, iot),
         num_keys=1, is_stable=True)
 
-    # starts via vectorized binary search (bincount+cumsum costs ~14 ms)
     starts = jnp.searchsorted(
         skey, jnp.arange(num_cells + 2, dtype=jnp.int32)).astype(jnp.int32)
     counts = jnp.diff(starts)                # (num_cells + 1,)
@@ -192,11 +187,6 @@ def prepare(pos0, age0, w0, cell, alive, cfg: NBodyConfig, dims=None,
     # fold the age gates into the snapshot (see module docstring): invalid
     # and kid rows get banded out-of-band coords (stencil rejects them via
     # cd^2 alone), collision eligibility rides a pre-gated gid column.
-    # Per-axis COPRIME moduli (2^19 and the prime 2^19-1): a single shared
-    # sequence would wrap at 2^19 rows, and at the 10M/32^3 config a block's
-    # stencil reaches rows a full cell-plane away (~400-800k > 2^19), so two
-    # distinct out-of-band rows could collide and pass the stencil; with
-    # coprime moduli a collision needs p == q (mod 2^19 * (2^19-1) ~ 2^38).
     kid = jnp.float32(cfg.kid_age)
     coord_ok = valid_s & (sage >= kid)
     base = jnp.where(valid_s, -10.0, -4194304.0)
@@ -207,12 +197,8 @@ def prepare(pos0, age0, w0, cell, alive, cfg: NBodyConfig, dims=None,
     i1s = jnp.where(coord_ok, (remq // row_stride).astype(f), bad_a)
     i2s = jnp.where(coord_ok, (remq % row_stride).astype(f), bad_b)
     i3s = jnp.where(coord_ok, i3q.astype(f), bad_a)
-    zero = jnp.zeros((n,), f)
-    snap = jnp.stack([
-        sx, sy, sz, zero, i1s, i2s, i3s, zero,
-        sgid, sage, sw, sw * sx, sw * sy, sw * sz, scg, zero,
-    ], axis=0)                               # (16, N), no transpose needed
-    snap = jnp.pad(snap, ((0, 0), (0, ch)))  # chunk reads never go OOB
+    snap = jnp.stack([sx, sy, sz, i1s, i2s, i3s, sw, sgid, scg], axis=0)
+    snap = jnp.pad(snap, ((0, 0), (0, t)))   # tile loads never go OOB
 
     # ---- per-block neighbor ranges --------------------------------------
     # Sorted cells in a block are CONTIGUOUS: [cmin, cmax].  For each of the
@@ -234,58 +220,23 @@ def prepare(pos0, age0, w0, cell, alive, cfg: NBodyConfig, dims=None,
     cmax = seg(skey, -_BIG, jnp.max)
     empty = (cmax - cmin) < 0
 
-    r_idx = jnp.arange(R_MAX, dtype=jnp.int32)[None, :]  # (1, R_MAX)
-
     offs = sorted(o3 * plane_stride + o1 * row_stride
                   for o3 in (-1, 0, 1) for o1 in (-1, 0, 1))
     prev_hi = jnp.full_like(cmin, -_BIG)
-    lo_cols, hi_cols = [], []
-    for r in range(9):                                    # sequential dedup
-        lo_r = jnp.maximum(cmin - 1 + offs[r], prev_hi + 1)
-        hi_r = cmax + 1 + offs[r]
+    r_start, r_count = [], []
+    for off in offs:                                      # sequential dedup
+        lo_r = jnp.maximum(cmin - 1 + off, prev_hi + 1)
+        hi_r = cmax + 1 + off
         prev_hi = jnp.maximum(prev_hi, hi_r)
-        lo_cols.append(lo_r)
-        hi_cols.append(hi_r)
-    padz = [jnp.zeros_like(cmin)] * (R_MAX - 9)
-    lo = jnp.stack(lo_cols + padz, axis=1)                # (NB, R_MAX)
-    hi = jnp.stack(hi_cols + [z - 1 for z in padz], axis=1)
-    active = (~empty)[:, None] & (r_idx < 9)
-
-    lo_c = jnp.clip(lo, 0, num_cells)
-    hi_c = jnp.clip(hi + 1, 0, num_cells)
-    r_start = starts[lo_c]
-    r_end = starts[hi_c]
-    count = jnp.where(active & (r_end > r_start), r_end - r_start, 0)
-
-    # ---- flatten ranges into a per-block chunk table -------------------
-    astart = (r_start // 128) * 128
-    lead = r_start - astart
-    tot = lead + count                                  # (NB, R_MAX)
-    nch = jnp.where(count > 0, (tot + ch - 1) // ch, 0)
-    cum = jnp.cumsum(nch, axis=1)                       # inclusive
-    total = cum[:, -1]
-    n_dropped = jnp.sum(jnp.maximum(total - c_max, 0))
-
-    j = jnp.arange(c_max, dtype=jnp.int32)[None, :]     # (1, c_max)
-    r_of = jnp.sum((cum[:, :, None] <= j[:, None, :]).astype(jnp.int32),
-                   axis=1)                              # (NB, c_max)
-    r_ofc = jnp.clip(r_of, 0, R_MAX - 1)
-    take = lambda a: jnp.take_along_axis(a, r_ofc, axis=1)
-    base = jnp.where(r_of > 0,
-                     jnp.take_along_axis(
-                         cum, jnp.clip(r_of - 1, 0, R_MAX - 1), axis=1), 0)
-    c_in = j - base                                      # (NB, c_max)
-    valid_j = j < jnp.minimum(total, c_max)[:, None]
-    astart_j = jnp.where(valid_j, take(astart) + c_in * ch, 0)
-    lo_j = jnp.where(valid_j, jnp.clip(take(lead) - c_in * ch, 0, ch), 0)
-    hi_j = jnp.where(valid_j, jnp.clip(take(tot) - c_in * ch, 0, ch), 0)
-    nact = jnp.minimum(total, c_max).astype(jnp.int32)
-    nact_col = jnp.broadcast_to(nact[:, None], (nb, c_max))
-    chunks = jnp.stack([astart_j, lo_j, hi_j, nact_col],
-                       axis=-1).astype(jnp.int32)
+        s0 = starts[jnp.clip(lo_r, 0, num_cells)]
+        s1 = starts[jnp.clip(hi_r + 1, 0, num_cells)]
+        r_start.append(s0)
+        r_count.append(jnp.where(~empty & (s1 > s0), s1 - s0, 0))
+    ranges = jnp.stack([jnp.stack(r_start, axis=1),
+                        jnp.stack(r_count, axis=1)], axis=-1)  # (NB, 9, 2)
 
     max_occ = jnp.max(counts[:num_cells]).astype(jnp.int32)
-    return snap, chunks, order, overflow_s, max_occ, counts, n_dropped
+    return snap, ranges, order, overflow_s, max_occ, counts
 
 
 # ---------------------------------------------------------------------------
@@ -293,228 +244,83 @@ def prepare(pos0, age0, w0, cell, alive, cfg: NBodyConfig, dims=None,
 # ---------------------------------------------------------------------------
 
 
-def _kernel(cfg: NBodyConfig, b: int, ch: int, acc_mxu: bool,
-            depth: int, acc_wide: bool, ts,
-            chunks_ref, mine_ref, snap_ref, out_ref, nbuf, acc_ref, imax_ref,
-            sem):
-    r2 = jnp.float32(cfg.collision_radius) ** 2
+def _kernel(cfg: NBodyConfig, b: int, t: int, ranges_ref, snap_ref,
+            out_ref):
+    r2 = jnp.float32(cfg.collision_radius ** 2)
     eps2 = jnp.float32(cfg.eps2)
+    blk = pl.program_id(0)
+    mine = pl.ds(blk * b, b)
 
-    mine = mine_ref[:]                      # (16, B)
-    mx = mine[0].reshape(b, 1)
-    my = mine[1].reshape(b, 1)
-    mz = mine[2].reshape(b, 1)
-    mi1 = mine[4].reshape(b, 1)
-    mi2 = mine[5].reshape(b, 1)
-    mi3 = mine[6].reshape(b, 1)
-    mgid = jax.lax.bitcast_convert_type(mine[8], jnp.int32).reshape(b, 1)
+    def col(r):                              # (b, 1) of this block's rows
+        return snap_ref[r, mine][:, None]
 
-    acc_ref[:] = jnp.zeros_like(acc_ref)
-    imax_ref[:] = jnp.full_like(imax_ref, _IMIN)
-    colr = jax.lax.broadcasted_iota(jnp.int32, (1, ch), 1)
-    nact = chunks_ref[0, 0, 3]
+    mx, my, mz = col(X), col(Y), col(Z)
+    mi1, mi2, mi3 = col(I1), col(I2), col(I3)
+    mgid = jax.lax.bitcast_convert_type(col(GID), jnp.int32)
+    lane = jax.lax.broadcasted_iota(jnp.int32, (1, t), 1)
 
-    def dma(j, slot):
-        astart = pl.multiple_of(chunks_ref[0, j, 0], 128)
-        return pltpu.make_async_copy(
-            snap_ref.at[:, pl.ds(astart, ch)], nbuf.at[slot], sem.at[slot])
+    def range_body(r, carry):
+        start = ranges_ref[blk, r, 0]
+        end = start + ranges_ref[blk, r, 1]
 
-    # prologue: fill the DMA pipeline `depth - 1` deep.  When per-chunk
-    # compute is shorter than the HBM DMA round-trip (small b*ch tiles),
-    # two slots stall on latency every iteration; a deeper pipeline keeps
-    # `depth - 1` fetches in flight.
-    for k in range(depth - 1):
-        @pl.when(k < nact)
-        def _(k=k):
-            dma(k, k % depth).start()
+        def tile_body(k, carry):
+            ax, ay, az, gmax = carry
+            c0 = start + k * t
+            cols = pl.ds(c0, t)
 
-    # block origin for the MXU recentering (see the acc_mxu comment below)
-    x0 = mine[0, 0]
-    y0 = mine[1, 0]
-    z0 = mine[2, 0]
+            def row(q):                      # (1, t) of candidate columns
+                return snap_ref[q, cols][None, :]
 
-    def pair_tile(row, colr_t, lo, hi, width):
-        """The per-pair physics on a (B, width) tile.  ``row(r)`` loads
-        snapshot row ``r`` as (1, width); accumulates into acc/imax refs."""
-        # age gating lives in the snapshot (out-of-band coords + pre-gated
-        # cgid column, see prepare) — in_rng is the ONLY semantic row mask
-        # left (range dedup: rows outside [lo, hi) may be covered by a
-        # different range of the same block)
-        in_rng = (colr_t >= lo) & (colr_t < hi)
-        ngid = jax.lax.bitcast_convert_type(row(8), jnp.int32)
-        ncgid = jax.lax.bitcast_convert_type(row(14), jnp.int32)
-
-        dx = row(0) - mx
-        dy = row(1) - my
-        dz = row(2) - mz
-        d2 = dx * dx + dy * dy + dz * dz
-
-        e1 = row(4) - mi1
-        e2 = row(5) - mi2
-        e3 = row(6) - mi3
-        cd2 = e1 * e1 + e2 * e2 + e3 * e3
-
-        # 27-stencil (dist^2 <= 3 on integer cell deltas) + self exclusion
-        pg = (cd2 <= 3.5) & (ngid != mgid) & in_rng
-        dd = d2 + eps2
-        rs = jax.lax.rsqrt(dd)
-        s = jnp.where(pg, rs * rs * rs, 0.0)
-
-        gsel = jnp.where(pg & (d2 <= r2), ncgid, _IMIN)
-        imax_ref[0, :] = jnp.maximum(imax_ref[0, :],
-                                     jnp.max(gsel, axis=1))
-        if acc_mxu:
-            # A[k, i] = sum_j rhs[k, j] * s[i, j] with rhs rows
-            # (w, w*(x-x0), w*(y-y0), w*(z-z0)): positions are recentered
-            # on the block origin so the post-loop ax = A[1] - (mx-x0)*A[0]
-            # subtraction cancels small numbers, not box-sized ones
-            w_row = row(10)
-            rhs = jnp.concatenate([
-                w_row,
-                row(11) - x0 * w_row,
-                row(12) - y0 * w_row,
-                row(13) - z0 * w_row,
-            ], axis=0)                                    # (4, width)
-            a4 = jax.lax.dot_general(
-                rhs, s, (((1,), (1,)), ((), ())),
-                precision=jax.lax.Precision.HIGHEST,
-                preferred_element_type=jnp.float32)       # (4, B)
-            acc_ref[0:4, :] = acc_ref[0:4, :] + a4
-        else:
-            sw = s * row(10)
-            acc_ref[0, :] = acc_ref[0, :] + jnp.sum(dx * sw, axis=1)
-            acc_ref[1, :] = acc_ref[1, :] + jnp.sum(dy * sw, axis=1)
-            acc_ref[2, :] = acc_ref[2, :] + jnp.sum(dz * sw, axis=1)
-
-    def body(j, _):
-        slot = j % depth
-
-        @pl.when(j + depth - 1 < nact)
-        def _():
-            dma(j + depth - 1, (j + depth - 1) % depth).start()
-
-        dma(j, slot).wait()
-        lo = chunks_ref[0, j, 1]
-        hi = chunks_ref[0, j, 2]
-
-        if acc_wide:
-            nb = nbuf[slot]                 # (16, CH)
-            in_rng = (colr >= lo) & (colr < hi)
-            ngid = jax.lax.bitcast_convert_type(nb[8],
-                                                jnp.int32).reshape(1, ch)
-            ncgid = jax.lax.bitcast_convert_type(nb[14],
-                                                 jnp.int32).reshape(1, ch)
-            dx = nb[0].reshape(1, ch) - mx
-            dy = nb[1].reshape(1, ch) - my
-            dz = nb[2].reshape(1, ch) - mz
+            dx = row(X) - mx
+            dy = row(Y) - my
+            dz = row(Z) - mz
             d2 = dx * dx + dy * dy + dz * dz
-            e1 = nb[4].reshape(1, ch) - mi1
-            e2 = nb[5].reshape(1, ch) - mi2
-            e3 = nb[6].reshape(1, ch) - mi3
+            e1 = row(I1) - mi1
+            e2 = row(I2) - mi2
+            e3 = row(I3) - mi3
             cd2 = e1 * e1 + e2 * e2 + e3 * e3
-            pg = (cd2 <= 3.5) & (ngid != mgid) & in_rng
-            dd = d2 + eps2
-            rs = jax.lax.rsqrt(dd)
-            s = jnp.where(pg, rs * rs * rs, 0.0)
-            gsel = jnp.where(pg & (d2 <= r2), ncgid, _IMIN)
-            # defer the expensive cross-lane reductions to once per block:
-            # accumulate full (B, CH) tiles elementwise (sum/max are
-            # associative across chunks) — a per-chunk axis=1 reduction is
-            # a fixed ~log(CH) shuffle cost that dominates small tiles
-            imax_ref[:, :] = jnp.maximum(imax_ref[:, :], gsel)
-            sw = s * nb[10].reshape(1, ch)
-            acc_ref[0] = acc_ref[0] + dx * sw
-            acc_ref[1] = acc_ref[1] + dy * sw
-            acc_ref[2] = acc_ref[2] + dz * sw
-            return 0
+            ngid = jax.lax.bitcast_convert_type(row(GID), jnp.int32)
+            # 27-stencil (dist^2 <= 3 on integer cell deltas), self
+            # exclusion, and the range's tail
+            pg = (cd2 <= 3.5) & (ngid != mgid) & (lane + c0 < end)
+            rs = jax.lax.rsqrt(d2 + eps2)
+            sw = jnp.where(pg, rs * rs * rs, 0.0) * row(W)
+            ncg = jax.lax.bitcast_convert_type(row(CG), jnp.int32)
+            gsel = jnp.where(pg & (d2 <= r2), ncg, _IMIN)
+            return (ax + dx * sw, ay + dy * sw, az + dz * sw,
+                    jnp.maximum(gmax, gsel))
 
-        if ts is None:
-            nb = nbuf[slot]                 # (16, CH)
-            pair_tile(lambda r: nb[r].reshape(1, ch), colr, lo, hi, ch)
-            return 0
+        return jax.lax.fori_loop(0, (end - start + t - 1) // t, tile_body,
+                                 carry)
 
-        # column-subtile loop: a chunk's valid columns are [lo, hi) with
-        # lo < 128 (prepare aligns astart down to 128), so computing
-        # ceil(hi/ts) subtiles covers them all and skips the padded tail
-        # [hi, CH) that full-tile masking would still burn VPU lanes on.
-        def sub_body(t, _):
-            c0 = t * ts
-            row = lambda r: nbuf[slot, r, pl.ds(c0, ts)].reshape(1, ts)
-            colr_t = jax.lax.broadcasted_iota(jnp.int32, (1, ts), 1) + c0
-            pair_tile(row, colr_t, lo, hi, ts)
-            return 0
-
-        jax.lax.fori_loop(0, (hi + ts - 1) // ts, sub_body, 0)
-        return 0
-
-    jax.lax.fori_loop(0, nact, body, 0)
-    if acc_wide:
-        out_ref[0, :] = jnp.sum(acc_ref[0], axis=1)
-        out_ref[1, :] = jnp.sum(acc_ref[1], axis=1)
-        out_ref[2, :] = jnp.sum(acc_ref[2], axis=1)
-        out_ref[3, :] = jax.lax.bitcast_convert_type(
-            jnp.max(imax_ref[:, :], axis=1), jnp.float32)
-    elif acc_mxu:
-        sw_sum = acc_ref[0, :]
-        out_ref[0, :] = acc_ref[1, :] - (mx.reshape(b) - mine[0, 0]) * sw_sum
-        out_ref[1, :] = acc_ref[2, :] - (my.reshape(b) - mine[1, 0]) * sw_sum
-        out_ref[2, :] = acc_ref[3, :] - (mz.reshape(b) - mine[2, 0]) * sw_sum
-        out_ref[3, :] = jax.lax.bitcast_convert_type(imax_ref[0, :],
-                                                     jnp.float32)
-    else:
-        out_ref[0:3, :] = acc_ref[0:3, :]
-        out_ref[3, :] = jax.lax.bitcast_convert_type(imax_ref[0, :],
-                                                     jnp.float32)
-    out_ref[4:8, :] = jnp.zeros((4, b), jnp.float32)
+    zero = jnp.zeros((b, t), jnp.float32)
+    ax, ay, az, gmax = jax.lax.fori_loop(
+        0, N_RANGES, range_body,
+        (zero, zero, zero, jnp.full((b, t), _IMIN, jnp.int32)))
+    out_ref[0, :] = jnp.sum(ax, axis=1)
+    out_ref[1, :] = jnp.sum(ay, axis=1)
+    out_ref[2, :] = jnp.sum(az, axis=1)
+    out_ref[3, :] = jax.lax.bitcast_convert_type(jnp.max(gmax, axis=1),
+                                                 jnp.float32)
 
 
-def kernel_call(cfg: NBodyConfig, snap, chunks, n: int,
-                c_max: int | None = None, ch: int | None = None,
-                b: int | None = None, acc_mxu: bool = False,
-                depth: int | None = None,
-                acc_wide: bool | None = None,
-                ts: int | None = None) -> jax.Array:
-    """Invoke the Pallas cluster-pair kernel on prepared inputs; returns the
-    raw sorted-order (8, n) output (rows 0-2 acc, row 3 gmax bits).  Shared
-    by :func:`neighbor_pass_blocks` and the phase profilers."""
-    c_max = C_MAX if c_max is None else c_max
-    ch = CH if ch is None else ch
-    b = B if b is None else b
-    depth = DEPTH if depth is None else depth
-    acc_wide = ACC_WIDE if acc_wide is None else acc_wide
-    ts = TS if ts is None else (None if ts <= 0 else ts)
-    if ts is not None:
-        assert ch % ts == 0 and ts % 128 == 0, (ch, ts)
-    nb_blocks = n // b
-    if acc_wide:
-        acc_scratch = [pltpu.VMEM((3, b, ch), jnp.float32),
-                       pltpu.VMEM((b, ch), jnp.int32)]
-    else:
-        acc_scratch = [pltpu.VMEM((8, b), jnp.float32),
-                       pltpu.VMEM((8, b), jnp.int32)]
+def kernel_call(cfg: NBodyConfig, snap, ranges, b: int = B,
+                t: int = T) -> jax.Array:
+    """Invoke the cluster-pair kernel on prepared inputs; returns the raw
+    sorted-order (4, n) output (rows 0-2 acc, row 3 gmax bits)."""
+    n = ranges.shape[0] * b
     return pl.pallas_call(
-        functools.partial(_kernel, cfg, b, ch, acc_mxu, depth, acc_wide, ts),
-        out_shape=jax.ShapeDtypeStruct((8, n), jnp.float32),
-        grid=(nb_blocks,),
-        in_specs=[
-            pl.BlockSpec((1, c_max, 4), lambda i: (i, 0, 0),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec((16, b), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pl.ANY),
-        ],
-        out_specs=pl.BlockSpec((8, b), lambda i: (0, i),
-                               memory_space=pltpu.VMEM),
-        scratch_shapes=[
-            pltpu.VMEM((depth, 16, ch), jnp.float32),
-            *acc_scratch,
-            pltpu.SemaphoreType.DMA((depth,)),
-        ],
+        functools.partial(_kernel, cfg, b, t),
+        out_shape=jax.ShapeDtypeStruct((4, n), jnp.float32),
+        grid=(n // b,),
+        in_specs=[pl.no_block_spec, pl.no_block_spec],
+        out_specs=pl.BlockSpec((4, b), lambda i: (0, i)),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS,
+                                             num_stages=NUM_STAGES),
         interpret=_interpret(),
-        cost_estimate=pl.CostEstimate(
-            flops=30 * n * 27 * 64, bytes_accessed=n * 16 * 4 * 28,
-            transcendentals=0),
-    )(chunks, snap[:, :n], snap)
+        name="cluster_pair",
+    )(ranges, snap)
 
 
 def unsort_outputs(out, order, overflow_s, ids=None, okeys=None):
@@ -540,37 +346,30 @@ def unsort_outputs(out, order, overflow_s, ids=None, okeys=None):
 
 
 def neighbor_pass_blocks(pos0, age0, w0, cell, alive, cfg: NBodyConfig,
-                         dims=None, ids=None, tags=None,
-                         c_max: int | None = None,
-                         ch: int | None = None, b: int | None = None,
-                         acc_mxu: bool = False,
-                         depth: int | None = None,
-                         acc_wide: bool | None = None,
-                         ts: int | None = None,
-                         ) -> Tuple[jax.Array, jax.Array, jax.Array,
-                                    jax.Array, jax.Array, jax.Array,
-                                    jax.Array]:
-    """Full pass: returns per-slot (acc (N,3), kill, touch, overflow,
-    max_cell_occupancy, per-cell counts, n_chunks_dropped) — same semantics
-    as ``ops/neighbor.neighbor_pass`` plus the grid-build byproducts (no cell
-    lists are materialized).  ``dims``/``ids``/``tags``/``c_max`` as in
-    :func:`prepare`; ``ch``/``b``/``acc_mxu`` select the tile sizes and the
-    MXU accumulation offload (defaults are the swept-best on v5e).
-    A nonzero ``n_chunks_dropped`` means some blocks' stencils exceeded the
-    chunk budget and interactions were LOST — callers must surface it
-    (``NBodyStats.n_listed_dropped``)."""
-    c_max = C_MAX if c_max is None else c_max
-    ch = CH if ch is None else ch
-    b = B if b is None else b
+                         dims=None, ids=None, tags=None, b: int = B,
+                         t: int = T):
+    """Full pass: returns per-row (acc (N,3), kill, touch, overflow,
+    max_cell_occupancy, per-cell counts) — same semantics as
+    ``ops/neighbor.neighbor_pass`` plus the grid-build byproducts (no cell
+    lists are materialized).  ``dims``/``ids``/``tags`` as in
+    :func:`prepare`; ``b``/``t`` select the tile shape.  Any row count is
+    accepted: rows are padded with dead rows to a multiple of ``b``."""
     n = cell.shape[0]
-    snap, chunks, order, overflow_s, max_occ, counts, n_dropped = prepare(
+    pad = (-n) % b
+    if pad:
+        padf = lambda a, v: jnp.concatenate(
+            [a, jnp.full((pad,) + a.shape[1:], v, a.dtype)])
+        pos0, age0, w0 = padf(pos0, 0.0), padf(age0, 0.0), padf(w0, 0.0)
+        cell, alive = padf(cell, 0), padf(alive, False)
+        ids = padf(jnp.arange(n, dtype=jnp.int32) if ids is None else ids,
+                   -1)
+        tags = None if tags is None else padf(tags, 0)
+    snap, ranges, order, overflow_s, max_occ, counts = prepare(
         pos0, age0, w0, cell, alive, cfg, dims=dims, ids=ids, tags=tags,
-        c_max=c_max, ch=ch, b=b)
-    out = kernel_call(cfg, snap, chunks, n, c_max=c_max, ch=ch, b=b,
-                      acc_mxu=acc_mxu, depth=depth, acc_wide=acc_wide, ts=ts)
-    # unsort by sorting on the forward permutation (all keys distinct): an
-    # (N,8) row SCATTER costs ~170 ms at 2M rows on v5e, the carrying sort
-    # ~10 ms.  The sorted-side overflow flag rides along as a free column.
+        b=b, t=t)
+    out = kernel_call(cfg, snap, ranges, b=b, t=t)
+    # unsort by sorting on the forward permutation (all keys distinct); the
+    # sorted-side overflow flag rides along as a free column
     okeys = collision_okey(tags) if tags is not None else None
     acc, kill, touch, overflow = unsort_outputs(out, order, overflow_s,
                                                 ids=ids, okeys=okeys)
@@ -580,4 +379,4 @@ def neighbor_pass_blocks(pos0, age0, w0, cell, alive, cfg: NBodyConfig,
         & (age0 <= jnp.float32(cfg.particle_life))
     kill = kill & win
     touch = touch & win
-    return acc, kill, touch, overflow, max_occ, counts, n_dropped
+    return (acc[:n], kill[:n], touch[:n], overflow[:n], max_occ, counts)

@@ -1,6 +1,6 @@
 """Multi-device decompositions and the distributed driver.
 
-* ``mesh`` — 1D/2D/3D meshes, hybrid ICI x DCN meshes, multi-host init
+* ``mesh`` — 1D/2D/3D meshes, node-aware hybrid meshes, multi-host init
 * ``nbody_sharded`` / ``nbody_pencil`` / ``nbody_brick`` — slab / pencil /
   brick spatial decompositions of the n-body scene
 * ``emitter_sharded`` — data-parallel emitter engine

@@ -82,7 +82,7 @@ class ShardedEmitterEngine:
         (unroll=2, the measured ~25% win of the single-chip ``step_many``,
         runtime/engine.py) around the per-device frame INSIDE the
         shard_map, so the DP engine pays dispatch latency once per batch
-        like the single-chip engine (VERDICT r4 item 6)."""
+        like the single-chip engine."""
         fn = self._step_many_jits.get(k)
         if fn is None:
             body = self._device_frame
@@ -130,8 +130,8 @@ class ShardedEmitterEngine:
         with self.timers.phase("step"):
             return self._step(s)
 
-    # -- persistence (facility parity with the n-body drivers; VERDICT r3
-    # #7).  EngineState is a pytree, so the npz checkpoint machinery works
+    # -- persistence (facility parity with the n-body drivers).
+    # EngineState is a pytree, so the npz checkpoint machinery works
     # as-is; the stored fingerprint pins scene physics AND the sharding
     # shape (d, alloc, layout — a reload under a different mesh width would
     # change per-device rates and RNG decorrelation, so it is refused).

@@ -1,9 +1,9 @@
 """Device mesh helpers + multi-host initialization.
 
 The reference's launcher is ``mpirun -n 2 --hostfile mpi-hosts``
-(``/root/reference/makefile:3-4``); the TPU-native equivalent is
-``jax.distributed.initialize`` (once per host) and a ``jax.sharding.Mesh``
-over the global device list.  Single-host/single-chip runs need neither —
+(``/root/reference/makefile:3-4``); the JAX equivalent is
+``jax.distributed.initialize`` (once per process) and a
+``jax.sharding.Mesh`` over the global device list.  Single-host/single-chip runs need neither —
 these helpers degrade gracefully.
 """
 
@@ -46,8 +46,7 @@ def mesh_1d(n_devices: Optional[int] = None, axis: str = "x") -> Mesh:
 def mesh_2d(d3: int, d1: int, axes=("x", "y")) -> Mesh:
     """2D ``(d3, d1)`` mesh for the pencil decomposition
     (``parallel/nbody_pencil.py``).  Axis "x" shards grid planes (i3),
-    "y" shards rows (i1); on a real pod slice lay "x" along the longer
-    ICI ring (it carries the cyclic migration traffic)."""
+    "y" shards rows (i1)."""
     devs = jax.devices()
     if len(devs) < d3 * d1:
         raise ValueError(f"need {d3 * d1} devices, have {len(devs)}")
@@ -65,78 +64,81 @@ def mesh_3d(d3: int, d1: int, d2: int, axes=("x", "y", "z")) -> Mesh:
     return Mesh(np.array(devs[:n]).reshape(d3, d1, d2), axes)
 
 
-def _slice_ids(devices) -> Optional[Sequence[int]]:
-    """Per-device TPU slice indices, or None when the runtime does not
-    expose slice topology (CPU meshes, single-slice pods).  Separated out
-    so tests can mock multi-slice topologies."""
-    ids = [getattr(d, "slice_index", None) for d in devices]
+def _process_ids(devices) -> Optional[Sequence[int]]:
+    """Per-device process index, or None when a device does not carry one.
+    Separated out so tests can mock multi-process topologies."""
+    ids = [getattr(d, "process_index", None) for d in devices]
     if any(i is None for i in ids):
         return None
     return ids
 
 
-def _block_device_array(granules, ici_shape, dcn_shape) -> np.ndarray:
-    """Deterministic granule-block layout: granule ``gi`` tiles the
-    ``ici_shape`` block at super-grid position ``gi`` of ``dcn_shape``.
-    Pure (np object array in, no Mesh construction) so layout properties
-    — ring axes staying intra-granule — are unit-testable with stub
-    devices."""
-    global_shape = tuple(d * i for d, i in zip(dcn_shape, ici_shape))
+def _block_device_array(granules, intra_shape, inter_shape) -> np.ndarray:
+    """Deterministic granule-block layout: granule ``gi`` (the devices of
+    one process) tiles the ``intra_shape`` block at super-grid position
+    ``gi`` of ``inter_shape``.  Pure (np object array in, no Mesh
+    construction) so layout properties — ring axes staying inside one
+    node — are unit-testable with stub devices."""
+    global_shape = tuple(d * i for d, i in zip(inter_shape, intra_shape))
     arr = np.empty(global_shape, dtype=object)
-    for gi, idx in enumerate(np.ndindex(*dcn_shape)):
-        block = np.array(granules[gi], dtype=object).reshape(ici_shape)
-        sl = tuple(slice(idx[k] * ici_shape[k], (idx[k] + 1) * ici_shape[k])
-                   for k in range(len(ici_shape)))
+    for gi, idx in enumerate(np.ndindex(*inter_shape)):
+        block = np.array(granules[gi], dtype=object).reshape(intra_shape)
+        sl = tuple(slice(idx[k] * intra_shape[k],
+                         (idx[k] + 1) * intra_shape[k])
+                   for k in range(len(intra_shape)))
         arr[sl] = block
     return arr
 
 
 def default_mesh(shape, axes) -> Mesh:
-    """Mesh of logical ``shape`` over the first ``prod(shape)`` devices,
-    honoring slice topology when the runtime exposes one (the driver's
-    default — VERDICT r3 #5): on a multi-slice pod the FIRST axis spans
-    the slice (DCN) seam block-wise and every other axis stays
-    intra-slice, so per-frame ring collectives (cyclic migration
-    ``ppermute``) ride ICI except for the two block-boundary hops of the
-    seam axis — the :func:`hybrid_mesh` placement rule, applied
-    automatically.  Falls back to flat device order with a LOUD warning
-    when the topology cannot be honored (axis size not divisible by the
-    slice count, uneven slices)."""
+    """Mesh of logical ``shape`` over the first ``prod(shape)`` devices.
+
+    Within one node every device reaches every other at the same rate, so
+    a single-process mesh is plain device order.  Across several processes
+    (a multi-node job) the FIRST axis spans the inter-node seam block-wise
+    and every other axis stays inside a node, so per-frame ring collectives
+    (cyclic migration ``ppermute``) leave the node only at the two block
+    boundaries of the first axis — the :func:`hybrid_mesh` placement rule,
+    applied automatically.  Falls back to flat device order with a LOUD
+    warning when that layout is impossible (axis size not divisible by the
+    process count, uneven processes)."""
     shape = tuple(int(s) for s in shape)
     n = int(np.prod(shape))
     devs = jax.devices()
     if len(devs) < n:
         raise ValueError(f"need {n} devices, have {len(devs)}")
     devs = devs[:n]
-    sids = _slice_ids(devs)
-    n_slices = len(set(sids)) if sids is not None else 1
-    if n_slices > 1:
-        counts = [sids.count(s) for s in sorted(set(sids))]
-        if shape[0] % n_slices == 0 and len(set(counts)) == 1:
-            ici = (shape[0] // n_slices,) + shape[1:]
-            dcn = (n_slices,) + (1,) * (len(shape) - 1)
-            return hybrid_mesh(ici, dcn, axes)
+    pids = _process_ids(devs)
+    n_procs = len(set(pids)) if pids is not None else 1
+    if n_procs > 1:
+        counts = [pids.count(p) for p in sorted(set(pids))]
+        if shape[0] % n_procs == 0 and len(set(counts)) == 1:
+            intra = (shape[0] // n_procs,) + shape[1:]
+            inter = (n_procs,) + (1,) * (len(shape) - 1)
+            return hybrid_mesh(intra, inter, axes)
         warnings.warn(
-            f"multi-slice topology ({n_slices} slices) cannot be honored "
-            f"for mesh shape {shape} (axis '{axes[0]}' size {shape[0]} "
-            f"must divide evenly into equal slices); falling back to flat "
-            f"device order — cyclic migration rings may cross the DCN "
-            f"seam every hop. Pass an explicit hybrid_mesh(...) instead.",
+            f"multi-process topology ({n_procs} processes) cannot be "
+            f"honored for mesh shape {shape} (axis '{axes[0]}' size "
+            f"{shape[0]} must divide evenly into equal processes); falling "
+            f"back to flat device order — cyclic migration rings may cross "
+            f"nodes every hop. Pass an explicit hybrid_mesh(...) instead.",
             RuntimeWarning, stacklevel=2)
     return Mesh(np.array(devs).reshape(shape), axes)
 
 
 def _device_granules(devices, n_granules: int):
-    """Group devices by physical locality: TPU ``slice_index`` when present
-    (multi-slice pods), else ``process_index`` (multi-host CPU/single-slice),
-    else contiguous equal blocks (single-process testing)."""
-    for keys in (_slice_ids(devices),
-                 [getattr(d, "process_index", None) for d in devices]):
-        if (keys is not None and all(k is not None for k in keys)
-                and len(set(keys)) == n_granules):
-            order = sorted(set(keys))
-            return [[d for d, k in zip(devices, keys) if k == g]
-                    for g in order]
+    """Group devices by process (one granule per node process); fall back
+    to contiguous equal blocks — loudly when processes exist but do not
+    match ``n_granules``."""
+    keys = _process_ids(devices)
+    if keys is not None and len(set(keys)) == n_granules:
+        order = sorted(set(keys))
+        return [[d for d, k in zip(devices, keys) if k == g] for g in order]
+    if keys is not None and len(set(keys)) > 1:
+        warnings.warn(
+            f"{len(set(keys))} processes do not match the requested "
+            f"{n_granules} inter-node blocks; using contiguous device blocks "
+            f"— rings may cross nodes", RuntimeWarning, stacklevel=3)
     if len(devices) % n_granules:
         raise ValueError(
             f"{len(devices)} devices cannot split into {n_granules} granules")
@@ -144,62 +146,38 @@ def _device_granules(devices, n_granules: int):
     return [list(devices[i * per:(i + 1) * per]) for i in range(n_granules)]
 
 
-def hybrid_mesh(ici_shape, dcn_shape, axes) -> Mesh:
-    """Slice-aware ``Mesh`` for multi-slice / multi-host scale-out — the
-    DCN story the reference gets from its 2-host mpirun launch
+def hybrid_mesh(intra_shape, inter_shape, axes) -> Mesh:
+    """Node-aware ``Mesh`` for multi-node scale-out — the story the
+    reference gets from its 2-host mpirun launch
     (``/root/reference/makefile:3-4``, ``build/linux/mpi-hosts:1-2``).
 
-    Global mesh axis ``i`` has size ``dcn_shape[i] * ici_shape[i]``; the
-    devices of one granule (a TPU slice, or one host process) tile the
-    ``ici_shape`` block, and blocks are laid out on the ``dcn_shape``
-    super-grid.  **Slice placement rule**: give every axis that carries a
-    per-frame ring collective (cyclic migration ``ppermute``) a
-    ``dcn_shape`` entry of 1 so its ring rides ICI only; reserve the DCN
-    split for ONE spatial axis, where traffic crosses the slice seam only
-    between the two adjacent sub-domains (halo faces + the few migrants
-    crossing that plane — DCN sees O(face), never O(ring)).
+    Global mesh axis ``i`` has size ``inter_shape[i] * intra_shape[i]``;
+    the devices of one process tile the ``intra_shape`` block, and blocks
+    are laid out on the ``inter_shape`` super-grid.  **Placement rule**:
+    give every axis that carries a per-frame ring collective (cyclic
+    migration ``ppermute``) an ``inter_shape`` entry of 1 so its ring stays
+    inside a node; reserve the inter-node split for ONE spatial axis, where
+    traffic crosses nodes only between the two adjacent sub-domains (halo
+    faces + the few migrants crossing that plane — O(face), never O(ring)).
 
-    Examples over 2 slices of 4 chips:
+    Examples over 2 nodes of 4 devices:
 
     * slab over 8:   ``hybrid_mesh((4,), (2,), ("x",))``
     * pencil (4,2):  ``hybrid_mesh((2, 2), (2, 1), ("x", "y"))`` —
-      the "y" migration ring stays intra-slice; "x" crosses DCN once.
+      the "y" migration ring stays inside a node; "x" crosses once.
     * brick (2,2,2): ``hybrid_mesh((1, 2, 2), (2, 1, 1), ("x", "y", "z"))``
-
-    Uses ``jax.experimental.mesh_utils.create_hybrid_device_mesh`` when the
-    runtime exposes slice topology (optimal intra-slice ICI ordering), with
-    a deterministic granule-block fallback for CPU meshes and tests.
     """
-    ici_shape = tuple(int(s) for s in ici_shape)
-    dcn_shape = tuple(int(s) for s in dcn_shape)
-    if len(ici_shape) != len(dcn_shape) or len(ici_shape) != len(axes):
-        raise ValueError(f"rank mismatch: {ici_shape} {dcn_shape} {axes}")
-    n_granules = int(np.prod(dcn_shape))
-    per_granule = int(np.prod(ici_shape))
+    intra_shape = tuple(int(s) for s in intra_shape)
+    inter_shape = tuple(int(s) for s in inter_shape)
+    if len(intra_shape) != len(inter_shape) or len(intra_shape) != len(axes):
+        raise ValueError(
+            f"rank mismatch: {intra_shape} {inter_shape} {axes}")
+    n_granules = int(np.prod(inter_shape))
+    per_granule = int(np.prod(intra_shape))
     devs = jax.devices()[: n_granules * per_granule]
     if len(devs) < n_granules * per_granule:
         raise ValueError(
             f"need {n_granules * per_granule} devices, have {len(devs)}")
-
-    if n_granules > 1 and _slice_ids(devs) is not None:
-        from jax.experimental import mesh_utils
-        try:
-            arr = mesh_utils.create_hybrid_device_mesh(
-                ici_shape, dcn_shape, devices=devs)
-            return Mesh(arr, axes)
-        except (ValueError, AssertionError) as e:
-            # topology mismatch — fall through to the deterministic block
-            # layout, but LOUDLY: on real hardware this usually means the
-            # requested ici_shape does not match the physical slice
-            # topology, and the block layout gives up the optimal
-            # intra-slice ICI ordering (VERDICT r3 weak #7)
-            warnings.warn(
-                f"create_hybrid_device_mesh rejected the requested hybrid "
-                f"topology ici={ici_shape} dcn={dcn_shape} ({e}); using "
-                f"the granule-block layout instead — rings stay "
-                f"intra-granule but the intra-slice ICI ordering may be "
-                f"suboptimal. Check ici_shape against the physical slice "
-                f"topology.", RuntimeWarning, stacklevel=2)
-
     granules = _device_granules(devs, n_granules)
-    return Mesh(_block_device_array(granules, ici_shape, dcn_shape), axes)
+    return Mesh(_block_device_array(granules, intra_shape, inter_shape),
+                axes)

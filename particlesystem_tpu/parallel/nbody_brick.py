@@ -1,6 +1,6 @@
 """Multi-chip n-body: full 3D brick decomposition over a (d3, d1, d2) mesh.
 
-This is the TPU-native completion of the reference's ownership scheme — the
+This is the SPMD completion of the reference's ownership scheme — the
 reference decomposes the 16^3 grid into 4x4x4 chunks whose working set is
 the chunk plus its co-owned faces/edges/corners (``set_pkg_segments``,
 ``/root/reference/source/code/inc/app_common.cu:150-232``).  Device
@@ -49,7 +49,6 @@ from ..core.state import ParticleState
 from ..models.nbody import frame_fields, lifecycle_update
 from ..ops import compact
 from ..ops.grid import build_bins, cell_coords, wrap_positions
-from ..utils.dispatchbug import recovering_call
 from ..ops.neighbor import collision_okey, neighbor_pass
 from .nbody_sharded import _pack_rows
 
@@ -172,26 +171,12 @@ def make_brick_step(cfg: NBodyConfig, spec: BrickSpec, mesh: Mesh):
         ext_dims = (e1, e2, p3 + 2)
 
         if spec.impl == "blocks":
-            from ..ops.neighbor_blocks import B as NB_B
             from ..ops.neighbor_blocks import neighbor_pass_blocks
-            rows = pos0.shape[0]
-            pad = (-rows) % NB_B
-            if pad:
-                padf = lambda arr, v: jnp.concatenate(
-                    [arr, jnp.full((pad,) + arr.shape[1:], v, arr.dtype)])
-                pos0p, age0p, w0p = (padf(pos0, 0.0), padf(age0, 0.0),
-                                     padf(w0, 0.0))
-                ids0p, tags0p = padf(ids0, -1), padf(tags0, 0)
-                cellp, validp = padf(ext_cell, 0), padf(valid0, False)
-            else:
-                pos0p, age0p, w0p = pos0, age0, w0
-                ids0p, tags0p, cellp, validp = ids0, tags0, ext_cell, valid0
-            acc, kill, touch, ovf, max_cell, _, chunks_dropped = \
-                neighbor_pass_blocks(pos0p, age0p, w0p, cellp, validp, cfg,
-                                     dims=ext_dims, ids=ids0p, tags=tags0p,
-                                     acc_mxu=cfg.fast_accum)
+            acc, kill, touch, ovf, max_cell, _ = neighbor_pass_blocks(
+                pos0, age0, w0, ext_cell, valid0, cfg, dims=ext_dims,
+                ids=ids0, tags=tags0)
             overflow_local = ovf[:c_local]
-            listed_dropped = chunks_dropped.astype(jnp.int32)
+            listed_dropped = jnp.int32(0)
         else:
             bins = build_bins(ext_cell, valid0, num_ext, cfg.cell_capacity)
             acc, kill, touch = neighbor_pass(pos0, age0, w0, ids0,
@@ -287,13 +272,7 @@ def make_brick_step(cfg: NBodyConfig, spec: BrickSpec, mesh: Mesh):
         check_vma=False,
     )
 
-    step_jit = jax.jit(lambda state, frame: step_sharded(state, frame))
-
-    def step_fn(state: ParticleState, frame: jax.Array):
-        # jax 0.9 dispatch-cache recovery — see utils/dispatchbug.py
-        return recovering_call(step_jit, state, frame)
-
-    step_fn.jittable = step_jit  # traceable step for batched driver loops
+    step_fn = jax.jit(lambda state, frame: step_sharded(state, frame))
 
     def shard_state(state: ParticleState) -> ParticleState:
         sh = NamedSharding(mesh, pspec)

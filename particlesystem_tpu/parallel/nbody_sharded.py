@@ -1,6 +1,6 @@
 """Multi-chip n-body: spatial slab decomposition with halo exchange.
 
-TPU-native replacement for the reference's distributed scheme — Unicorn/pmlib
+SPMD replacement for the reference's distributed scheme — Unicorn/pmlib
 ships co-owned boundary segments between MPI ranks on demand via byte-range
 subscriptions (``set_pkg_segments`` ``app_common.cu:150-232``; subscriptions
 ``particleSystem.cpp:380-504``).  Here the mapping is explicit SPMD:
@@ -11,7 +11,7 @@ subscriptions (``set_pkg_segments`` ``app_common.cu:150-232``; subscriptions
   lies in the local slab.
 * **Halo exchange**: each device packs its boundary planes' snapshot data
   (pos, age, w, global id) into fixed-size buffers and ``ppermute``s them to
-  its neighbors over ICI.  The stencil never wraps at the global boundary
+  its neighbors.  The stencil never wraps at the global boundary
   (reference ``fill_cells`` clipping, ``app.cu:352-409``), so halo traffic is
   non-cyclic — edge devices simply receive empty buffers.
 * The neighbor pass runs on the local slab EXTENDED by one halo plane per
@@ -55,7 +55,6 @@ from ..core.state import ParticleState
 from ..models.nbody import frame_fields, lifecycle_update
 from ..ops import compact
 from ..ops.grid import build_bins, cell_coords, wrap_positions
-from ..utils.dispatchbug import recovering_call
 from ..ops.neighbor import collision_okey, neighbor_pass
 
 
@@ -133,8 +132,7 @@ def make_sharded_step(cfg: NBodyConfig, spec: SlabSpec, mesh: Mesh):
             # two boundary planes (two masked compactions over the whole
             # shard) and append 2*h inert rows through the binning sort,
             # only for the empty-perm ppermute to deliver all-invalid
-            # rows.  Statically skip it, like the migration ring below —
-            # measured 204 -> 75 ms/frame on the chip at 1M (NOTES r5)
+            # rows.  Statically skip it, like the migration ring below
             pos0, age0, w0 = pos_w, state.age, state.w
             ids0, tags0, valid0 = gids, state.tag, state.alive
             lmask = rmask = None
@@ -172,30 +170,12 @@ def make_sharded_step(cfg: NBodyConfig, spec: SlabSpec, mesh: Mesh):
         num_ext = (planes + 2) * gd * gd
 
         if spec.impl == "blocks":
-            from ..ops.neighbor_blocks import B as NB_B
             from ..ops.neighbor_blocks import neighbor_pass_blocks
-            rows = pos0.shape[0]
-            pad = (-rows) % NB_B
-            if pad:
-                padf = lambda a, v: jnp.concatenate(
-                    [a, jnp.full((pad,) + a.shape[1:], v, a.dtype)])
-                pos0p = padf(pos0, 0.0)
-                age0p = padf(age0, 0.0)
-                w0p = padf(w0, 0.0)
-                ids0p = padf(ids0, -1)
-                tags0p = padf(tags0, 0)
-                cellp = padf(ext_cell, 0)
-                validp = padf(valid0, False)
-            else:
-                pos0p, age0p, w0p = pos0, age0, w0
-                ids0p, tags0p, cellp, validp = ids0, tags0, ext_cell, valid0
-            acc, kill, touch, ovf, max_cell, _, chunks_dropped = \
-                neighbor_pass_blocks(
-                    pos0p, age0p, w0p, cellp, validp, cfg,
-                    dims=(gd, gd, planes + 2), ids=ids0p, tags=tags0p,
-                    acc_mxu=cfg.fast_accum)
+            acc, kill, touch, ovf, max_cell, _ = neighbor_pass_blocks(
+                pos0, age0, w0, ext_cell, valid0, cfg, dims=(gd, gd, planes + 2),
+                ids=ids0, tags=tags0)
             overflow_local = ovf[:c_local]
-            listed_dropped = chunks_dropped.astype(jnp.int32)
+            listed_dropped = jnp.int32(0)
         else:
             bins = build_bins(ext_cell, valid0, num_ext, cfg.cell_capacity)
             acc, kill, touch = neighbor_pass(pos0, age0, w0, ids0,
@@ -305,13 +285,7 @@ def make_sharded_step(cfg: NBodyConfig, spec: SlabSpec, mesh: Mesh):
         check_vma=False,
     )
 
-    step_jit = jax.jit(lambda state, frame: step_sharded(state, frame))
-
-    def step_fn(state: ParticleState, frame: jax.Array):
-        # jax 0.9 dispatch-cache recovery — see utils/dispatchbug.py
-        return recovering_call(step_jit, state, frame)
-
-    step_fn.jittable = step_jit  # traceable step for batched driver loops
+    step_fn = jax.jit(lambda state, frame: step_sharded(state, frame))
 
     def shard_state(state: ParticleState) -> ParticleState:
         sh = NamedSharding(mesh, pspec)

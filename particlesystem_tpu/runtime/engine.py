@@ -7,8 +7,8 @@ step, recycling bookkeeping and spawn writes — with zero host round trips
 device).
 
 State is eight separate ``(N,)`` f32 field arrays (x, y, z, vx, vy, vz, age,
-life) — the layout XLA streams at full HBM bandwidth (~860 GB/s measured at
-10M on v5e; see ``ops/fused_step.py`` for the layout study).
+life), which XLA streams as one fused elementwise pass (see
+``ops/fused_step.py``).
 
 Two allocation policies (``alloc=``):
 
@@ -27,18 +27,10 @@ Two allocation policies (``alloc=``):
   as a pure elementwise broadcast-select over natively-2D state: fields are
   ``(slots/W, W)`` with W the padded spawn budget, the write window IS row
   ``cursor/W``, and ``out[b,j] = where(b==lap & valid[j], row[j], phys)``
-  fuses into the physics pass.  This exists because ANY
-  ``dynamic_update_slice`` of a spawn window into the big 1-D arrays costs
-  a full extra copy pass on TPU (~0.33 ms at 10M: XLA materializes the
-  physics fusion, then the DUS re-copies every array — measured; static
-  offsets and write-only variants cost the same, and reshaping at the
-  2-D boundary costs ~0.7 ms more, see tools/probe_spawn_overhead.py).
-  The select form is the only shape XLA keeps in ONE fused pass: 0.81 ms
-  vs 0.97 (packed8/ring) / 1.20 (slim/ring) per 10M frame on v5e.  The
-  fastest path; alive-row multiset bitwise-identical to ``strided``.
-
-Two physics kernels (``kernel=``): ``"xla"`` (default, fastest) and
-``"pallas"`` (comparison / kernel scaffold).
+  fuses into the physics pass, where a ``dynamic_update_slice`` of a
+  spawn window into the big 1-D arrays can make XLA materialize the
+  physics fusion and then re-copy every array.  Alive-row multiset
+  bitwise-identical to ``strided``.
 
 Two state layouts (``layout=``):
 
@@ -92,22 +84,16 @@ class PackedEngine:
 
     def __init__(self, cfg: EmitterSceneConfig, refresh_interval: int = 1,
                  free_list_size: Optional[int] = None, alloc: str = "exact",
-                 kernel: str = "xla", layout: str = "packed8"):
+                 layout: str = "packed8"):
         if alloc not in ("exact", "ring", "strided", "select"):
             raise ValueError(f"unknown alloc policy {alloc!r}")
-        if kernel not in ("xla", "pallas"):
-            raise ValueError(f"unknown kernel {kernel!r}")
         if layout not in ("packed8", "slim"):
             raise ValueError(f"unknown layout {layout!r}")
-        if layout == "slim" and (alloc == "exact" or kernel != "xla"):
+        if layout == "slim" and alloc == "exact":
             raise ValueError("layout='slim' requires alloc='ring'/'strided'/"
-                             "'select', kernel='xla'")
-        if alloc == "select" and kernel != "xla":
-            raise ValueError("alloc='select' requires kernel='xla' (the "
-                             "pallas comparison kernel assumes flat fields)")
+                             "'select'")
         self.cfg = cfg
         self.alloc = alloc
-        self.kernel = kernel
         self.layout = layout
         self.n_fields = 7 if layout == "slim" else 8
         self.refresh_interval = int(refresh_interval)
@@ -177,12 +163,6 @@ class PackedEngine:
         )
 
     # ------------------------------------------------------------------
-    def _physics(self, fields):
-        if self.kernel == "pallas":
-            from ..ops.pallas_step import physics_step_pallas
-            return physics_step_pallas(fields, self.cfg)
-        return fs.physics_step(fields, self.cfg)
-
     def _frame(self, s: EngineState, salt=0) -> EngineState:
         cfg = self.cfg
         spawn, accum = em.spawn_fields(cfg, s.frame, s.accum, salt)
@@ -190,7 +170,7 @@ class PackedEngine:
             fields = fs.physics_step_slim(s.fields, cfg)
             rows = fs.pack_spawn_rows_slim(spawn, s.frame, cfg.dt)
         else:
-            fields = self._physics(s.fields)
+            fields = fs.physics_step(s.fields, cfg)
             rows = fs.pack_spawn_rows(spawn)
 
         if self.alloc in ("ring", "strided", "select"):
@@ -232,13 +212,9 @@ class PackedEngine:
 
     def step_many(self, s: EngineState, k: int) -> EngineState:
         """Run ``k`` frames in one device dispatch (``fori_loop``); the tool
-        of choice when per-call dispatch latency would dominate (remote or
-        heavily pipelined execution)."""
+        of choice when per-call dispatch latency would dominate.  The loop
+        body is unrolled twice so consecutive frames alternate buffers."""
         if k not in self._step_many:
-            # unroll=2: XLA's TPU loop-fusion planner schedules the
-            # alternating-buffer body at the ~860 GB/s HBM ceiling, while
-            # the rolled loop stalls at ~660 GB/s (0.95 -> 0.73 ms/frame at
-            # 10M slots, measured on v5e — NOTES.md round-3 slim study)
             self._step_many[k] = jax.jit(
                 lambda st: jax.lax.fori_loop(
                     0, k, lambda _, x: self._frame(x), st, unroll=2),

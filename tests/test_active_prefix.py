@@ -14,18 +14,12 @@ import numpy as np
 from particlesystem_tpu import GridSpec, NBodyConfig
 from particlesystem_tpu.api import NBodySimulation
 from particlesystem_tpu.models import nbody
-from particlesystem_tpu.utils.dispatchbug import recovering_call
 
 CFG = NBodyConfig(n_fill=3000, capacity=8192,
                   grid=GridSpec(grid_dim=8, chunk_factor=2),
                   particle_life=2.0, spawn_budget=1024, seed=5)
 
 
-# Two Pallas-bearing jit signatures in one process trip the jax-0.9
-# dispatch-cache bug from the second dispatch after a signature switch
-# (tools/repro_jax_dispatch_bug.py; a fused two-kernel program is WORSE —
-# it fails even alone).  recovering_call absorbs the one poisoned dispatch
-# per switch, so the trajectories are run sequentially, never interleaved.
 step_full = jax.jit(lambda s, f: nbody.step(s, f, CFG, 0, "blocks", 0))
 step_buck = jax.jit(lambda s, f: nbody.step(s, f, CFG, 0, "blocks", 4096))
 
@@ -33,7 +27,7 @@ step_buck = jax.jit(lambda s, f: nbody.step(s, f, CFG, 0, "blocks", 4096))
 def run_traj(step, st, f0, frames):
     out = []
     for f in range(f0, f0 + frames):
-        st, stats = recovering_call(step, st, jnp.int32(f))
+        st, stats = step(st, jnp.int32(f))
         out.append((st, stats))
     return out
 
@@ -41,7 +35,7 @@ def run_traj(step, st, f0, frames):
 def warmed(frames=4):
     st = nbody.init_fill(CFG)
     for f in range(frames):
-        st, _ = recovering_call(step_full, st, jnp.int32(f))
+        st, _ = step_full(st, jnp.int32(f))
     return st, frames
 
 
@@ -79,58 +73,10 @@ def test_bucketed_step_matches_full_width_exactly():
                 np.asarray(getattr(buck, fld)), f"frame {f} {fld}")
 
 
-def test_frozen_prefix_platform_mode(monkeypatch):
-    """On platforms where only one Pallas program shape may be
-    re-dispatched (utils/dispatchbug.multi_pallas_shapes_safe() False),
-    the driver freezes a prefix sized from n_fill at construction and
-    never re-buckets — one step shape for the whole run, same physics."""
-    import particlesystem_tpu.api as api_mod
-
-    monkeypatch.setattr(api_mod, "multi_pallas_shapes_safe", lambda: False)
-    cfg = dataclasses.replace(CFG, capacity=1 << 20)
-    a = NBodySimulation(cfg, impl="blocks", active_bucketing=True)
-    assert a._frozen_active and a._active != 0
-    want0 = a._active
-    b = NBodySimulation(cfg, impl="blocks", active_bucketing=False)
-    a.run(4)
-    b.run(4)
-    assert a._active == want0  # never re-bucketed
-    # ONE program shape dispatched for the whole run: default run() now
-    # auto-batches (batch=0), so the shape is the batched loop, not the
-    # per-frame step
-    assert len(a._loop_jits) == 1 and not a._step_jits
-    for k in ("n_alive", "n_collision_kills", "n_spawned"):
-        assert int(getattr(a.last_stats, k)) == int(getattr(b.last_stats, k))
-    m = np.asarray(a.state.alive)
-    ra = np.concatenate([np.asarray(a.state.pos),
-                         np.asarray(a.state.vel)], axis=1)[m]
-    mb = np.asarray(b.state.alive)
-    rb = np.concatenate([np.asarray(b.state.pos),
-                         np.asarray(b.state.vel)], axis=1)[mb]
-    np.testing.assert_array_equal(ra[np.lexsort(ra.T[::-1])],
-                                  rb[np.lexsort(rb.T[::-1])])
-    # checkpoint round-trip keeps the frozen shape (load() may compact but
-    # must not change the prefix after stepping)
-    import tempfile, os
-    with tempfile.TemporaryDirectory() as d:
-        p = os.path.join(d, "ck.npz")
-        a.save(p)
-        a.load(p)
-        assert a._active == want0
-        a.run(4)  # batch=0 auto-resolution reuses the claimed loop shape
-        assert len(a._loop_jits) == 1
-        # an indivisible run would need a SECOND loop shape: refused
-        # loudly instead of wedging the TPU client (utils/dispatchbug.py)
-        import pytest
-        with pytest.raises(RuntimeError, match="one batch size"):
-            a.run(2)
-
-
 def test_prefix_saturation_reports_spawn_cap():
     """A saturated prefix (zero free slots inside, free room in the tail)
-    must REPORT the spawns it capped (stats.n_spawn_capped) — the silent
-    failure mode of the frozen-prefix platform: a growing population could
-    otherwise diverge from the full-width trajectory with every guard
+    must REPORT the spawns it capped (stats.n_spawn_capped) — otherwise a
+    growing population could diverge from the full-width trajectory with every guard
     still green (n_tail_alive only sees alive rows beyond the prefix)."""
     st = nbody.init_fill(CFG)
     n = st.slots

@@ -1,4 +1,4 @@
-"""Sync-free batched driver loops (VERDICT r3 #1).
+"""Sync-free batched driver loops.
 
 ``run(batch=k)`` must reproduce the per-frame ``run()`` trajectory exactly
 (the loop body IS the same step program) while reading the host back once
@@ -63,7 +63,6 @@ def _saturated_prefix_sim():
         st, alive=jnp.asarray(alive), age=jnp.asarray(age),
         life=jnp.asarray(life), parent=jnp.zeros((n,), bool))
     sim._active = 1024
-    sim._frozen_active = True
     return sim
 
 
@@ -83,7 +82,7 @@ def test_batched_run_still_trips_tail_alive_guard():
 
 
 def test_auto_batch_policy():
-    """batch=0 (the new default, VERDICT r4 item 5): largest divisor of the
+    """batch=0 (the new default): largest divisor of the
     iteration count <= 16; per-frame only when no divisor exists."""
     from particlesystem_tpu.api import auto_batch
 
@@ -142,9 +141,9 @@ def test_distributed_batched_run_still_warns_on_drops():
 
 
 def test_cli_multidevice_routes_through_driver(tmp_path, capsys):
-    """The launcher front door drives DistributedNBodySimulation (VERDICT
-    r3 #3): batched iteration BY DEFAULT (no --batch flag: auto_batch
-    resolves 4 iterations to one 4-frame device loop, VERDICT r4 item 5),
+    """The launcher front door drives DistributedNBodySimulation:
+    batched iteration BY DEFAULT (no --batch flag: auto_batch resolves 4
+    iterations to one 4-frame device loop),
     timers report, checkpoint on request."""
     import os
 

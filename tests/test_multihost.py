@@ -2,10 +2,10 @@
 collectives drive sharded n-body runs for ALL THREE decompositions.
 
 The reference actually runs on 2 MPI hosts (``/root/reference/makefile:3-4``,
-``build/linux/mpi-hosts``); this is the TPU-native equivalent —
+``build/linux/mpi-hosts``); this is the JAX equivalent —
 ``mesh.maybe_init_distributed`` (env-driven, the hostfile analog) joins two
 CPU processes of 4 virtual devices each into one 8-device *hybrid* mesh
-(``mesh.hybrid_mesh``: the process split plays the DCN axis), and the
+(``mesh.hybrid_mesh``: the process split plays the inter-node axis), and the
 sharded steps' ppermute/psum collectives — 1-axis (slab), 2-axis (pencil)
 and 3-axis (brick) — cross the process boundary.  Stats must match the
 single-device trajectory exactly for the same window the single-process

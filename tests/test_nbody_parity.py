@@ -37,10 +37,8 @@ def run_parity(cfg, n_frames, impl="dense"):
     events = {k: 0 for k in ("n_collision_kills", "n_age_deaths",
                              "n_survivals", "n_spawned", "n_overflow_kills")}
 
-    # device side through the ONE shared nbody.step jit (a second jit
-    # signature around the blocks step trips a jax-0.9 dispatch-cache bug —
-    # tools/repro_jax_dispatch_bug.py); the oracle's random fields are
-    # recomputed separately, identical by threefry determinism
+    # the oracle's random fields are recomputed separately, identical by
+    # threefry determinism
     fields = jax.jit(lambda f, t: nbody.frame_fields(cfg, f, t))
 
     for frame in range(n_frames):

@@ -1,12 +1,14 @@
-"""Cluster-pair Pallas kernel vs the dense cell-pair pass.
+"""Cluster-pair kernel vs the dense cell-pair pass.
 
 Flags (kill/touch/overflow) must match EXACTLY; accelerations to float
-tolerance.  The small-kernel configuration (B=32, CH=128) forces
-multi-chunk ranges and blocks that cross i1-row and i3-plane boundaries —
-the regression for the range-construction bug where coordinate-window
-fallbacks exploded past the chunk budget and silently dropped
-interactions for box-edge particles.
+tolerance.  On the CPU the kernel runs in the Pallas interpreter; the
+lowering test checks that the same call compiles to a Triton kernel for
+CUDA.  Small tiles (b=32, t=32) force multi-tile ranges and blocks that
+cross i1-row and i3-plane boundaries — the regression for the
+range-construction bug where box-edge particles lost interactions.
 """
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -17,7 +19,7 @@ import particlesystem_tpu.ops.neighbor_blocks as nbk
 from particlesystem_tpu import GridSpec, NBodyConfig
 from particlesystem_tpu.models import nbody
 from particlesystem_tpu.ops.grid import build_bins, coords_to_cell, wrap_positions
-from particlesystem_tpu.ops.neighbor import neighbor_pass
+from particlesystem_tpu.ops.neighbor import collision_okey, neighbor_pass
 
 CONFIGS = {
     "dense-g4": NBodyConfig(n_fill=1500, capacity=2048,
@@ -30,6 +32,31 @@ CONFIGS = {
                           grid=GridSpec(grid_dim=8, chunk_factor=2),
                           seed=13),
 }
+TILINGS = [(nbk.B, nbk.T), (16, 128), (128, 16)]
+
+
+def dense_reference(cfg, pos, age, w, cell, alive, ids=None, tags=None,
+                    dims=None):
+    g = cfg.grid.grid_dim
+    dims = dims or (g, g, g)
+    bins = build_bins(cell, alive, dims[0] * dims[1] * dims[2],
+                      cfg.cell_capacity)
+    ids = jnp.arange(pos.shape[0], dtype=jnp.int32) if ids is None else ids
+    okeys = None if tags is None else collision_okey(tags)
+    acc, kill, touch = neighbor_pass(pos, age, w, ids, bins.cell_list, dims,
+                                     cfg, batch_cells=64, okeys=okeys)
+    return acc, kill, touch, bins.overflow
+
+
+def assert_matches(got, want, tol=1e-5):
+    acc_b, kill_b, touch_b, ovf_b = got
+    acc_d, kill_d, touch_d, ovf_d = want
+    np.testing.assert_array_equal(np.asarray(ovf_b), np.asarray(ovf_d))
+    np.testing.assert_array_equal(np.asarray(kill_b), np.asarray(kill_d))
+    np.testing.assert_array_equal(np.asarray(touch_b), np.asarray(touch_d))
+    scale = max(1.0, float(np.abs(np.asarray(acc_d)).max()))
+    err = np.abs(np.asarray(acc_b) - np.asarray(acc_d)).max() / scale
+    assert err < tol, err
 
 
 def compare(cfg, frames=2, tol=1e-5, **kernel_kw):
@@ -38,77 +65,102 @@ def compare(cfg, frames=2, tol=1e-5, **kernel_kw):
         state, _ = nbody.step(state, jnp.int32(f), cfg)
     pos_w, coords = wrap_positions(state.pos, cfg.grid)
     cell = coords_to_cell(coords, cfg.grid)
-    bins = build_bins(cell, state.alive, cfg.grid.num_cells,
-                      cfg.cell_capacity)
-    ids = jnp.arange(state.slots, dtype=jnp.int32)
-    g = cfg.grid.grid_dim
-    acc_d, kill_d, touch_d = neighbor_pass(
-        state.pos, state.age, state.w, ids, bins.cell_list, (g, g, g), cfg,
-        batch_cells=64)
-    acc_b, kill_b, touch_b, ovf, _, _, dropped = nbk.neighbor_pass_blocks(
+    acc_b, kill_b, touch_b, ovf, _, _ = nbk.neighbor_pass_blocks(
         state.pos, state.age, state.w, cell, state.alive, cfg, **kernel_kw)
-
-    assert int(dropped) == 0
-    np.testing.assert_array_equal(np.asarray(ovf), np.asarray(bins.overflow))
-    np.testing.assert_array_equal(np.asarray(kill_b), np.asarray(kill_d))
-    np.testing.assert_array_equal(np.asarray(touch_b), np.asarray(touch_d))
-    scale = max(1.0, float(np.abs(np.asarray(acc_d)).max()))
-    err = np.abs(np.asarray(acc_b) - np.asarray(acc_d)).max() / scale
-    assert err < tol, err
+    assert_matches((acc_b, kill_b, touch_b, ovf),
+                   dense_reference(cfg, state.pos, state.age, state.w, cell,
+                                   state.alive), tol)
 
 
+@pytest.mark.parametrize("tiling", TILINGS, ids=lambda bt: f"b{bt[0]}t{bt[1]}")
 @pytest.mark.parametrize("name", sorted(CONFIGS))
-def test_blocks_matches_dense(name):
-    compare(CONFIGS[name])
+def test_blocks_matches_dense(name, tiling):
+    b, t = tiling
+    compare(CONFIGS[name], b=b, t=t)
 
 
-def test_blocks_acc_wide_matches_dense():
-    """Wide-accumulator variant (per-block deferred reductions): exact
-    flags, float-tolerance accelerations — the cross-chunk reassociation
-    must stay within the oracle tolerance."""
-    compare(CONFIGS["mid-g8"], acc_wide=True)
-
-
-def test_blocks_subtile_matches_dense():
-    """Column-subtile variant (ts): per-chunk loop over ceil(hi/ts)
-    lane-dim subtiles instead of one full-CH tile.  Must be exact vs the
-    full-tile path — the [hi, CH) tail it skips contributes only masked
-    lanes.  ts=128 forces several subtiles per chunk at the default CH."""
-    compare(CONFIGS["mid-g8"], ts=128)
-    # acc_mxu trades ~2e-5 relative accumulation error for speed (NOTES.md)
-    compare(CONFIGS["mid-g8"], ts=128, acc_mxu=True, tol=5e-4)
-
-
-def test_blocks_multichunk_plane_crossings(monkeypatch):
-    """Small kernel tiles force multi-chunk ranges and row/plane-crossing
+def test_blocks_multichunk_plane_crossings():
+    """Small kernel tiles force multi-tile ranges and row/plane-crossing
     blocks at modest particle counts (the box-edge regression)."""
-    monkeypatch.setattr(nbk, "B", 32)
-    monkeypatch.setattr(nbk, "CH", 128)
     cfg = NBodyConfig(n_fill=20_000, capacity=32768,
                       grid=GridSpec(grid_dim=16), seed=3)
-    compare(cfg, frames=1)
+    compare(cfg, frames=1, b=32, t=32)
 
 
-def test_chunk_budget_overflow_is_reported():
-    """A deliberately tiny chunk budget must produce a NONZERO drop count
-    (the red path: truncated forces are reported, never silent), and the
-    stat must reach NBodyStats.n_listed_dropped through step_fields."""
-    cfg = CONFIGS["mid-g8"]
-    state = nbody.init_fill(cfg)
-    pos_w, coords = wrap_positions(state.pos, cfg.grid)
+def test_dense_cluster_needs_no_budget():
+    """Every particle in a 2x2x2 corner of the grid: each block's ranges
+    span many tiles, and the per-block range list still covers the whole
+    stencil — no interaction is dropped and the frame stat stays 0."""
+    cfg = NBodyConfig(n_fill=2048, capacity=2048,
+                      grid=GridSpec(grid_dim=4, chunk_factor=2),
+                      max_per_cell=512, seed=11)
+    st = nbody.init_fill(cfg)
+    pos = jnp.asarray(np.random.default_rng(0).uniform(
+        -cfg.grid.half_extent, -cfg.grid.half_extent + 2 * cfg.grid.cell_size,
+        (st.slots, 3)).astype(np.float32))
+    st = dataclasses.replace(st, pos=pos)
+    _, coords = wrap_positions(st.pos, cfg.grid)
     cell = coords_to_cell(coords, cfg.grid)
-    *_, dropped = nbk.neighbor_pass_blocks(
-        state.pos, state.age, state.w, cell, state.alive, cfg, c_max=2)
-    assert int(dropped) > 0
+    got = nbk.neighbor_pass_blocks(st.pos, st.age, st.w, cell, st.alive, cfg,
+                                   tags=st.tag)
+    assert int(got[4]) > 200            # max cell occupancy: truly crowded
+    assert_matches(got[:4], dense_reference(cfg, st.pos, st.age, st.w, cell,
+                                            st.alive, tags=st.tag))
+    uvec, fert = nbody.frame_fields(cfg, jnp.int32(0), st.tag)
+    _, stats = nbody.step_fields(st, uvec, fert, jnp.int32(0), cfg, 0,
+                                 "blocks")
+    assert int(stats.n_listed_dropped) == 0
 
-    # end-to-end: squeeze the module default and check the frame stat
-    # (eager step_fields — a jit could replay a trace with the real C_MAX)
-    import unittest.mock as mock
-    uvec, fert = nbody.frame_fields(cfg, jnp.int32(0), state.tag)
-    with mock.patch.object(nbk, "C_MAX", 2):
-        _, stats = nbody.step_fields(state, uvec, fert, jnp.int32(0), cfg,
-                                     0, "blocks")
-    assert int(stats.n_listed_dropped) > 0
+
+def test_row_count_padding_matches_dense():
+    """The sharded steps hand the pass an extended row set (local slots +
+    halo buffers) whose count is no multiple of the block size: rows are
+    padded with dead rows to a multiple of ``b`` and sliced back, with
+    explicit ids/tags and non-cubic dims as the slab path uses them."""
+    cfg = CONFIGS["mid-g8"]
+    st = nbody.init_fill(cfg)
+    n = 5000                                   # no multiple of B
+    assert n % nbk.B
+    pos, age, w = st.pos[:n], st.age[:n], st.w[:n]
+    alive, tags = st.alive[:n], st.tag[:n]
+    ids = jnp.arange(n, dtype=jnp.int32) + 7   # globally unique, not slots
+    g = cfg.grid.grid_dim
+    dims = (g, g, g)
+    _, coords = wrap_positions(pos, cfg.grid)
+    cell = coords_to_cell(coords, cfg.grid)
+    got = nbk.neighbor_pass_blocks(pos, age, w, cell, alive, cfg, dims=dims,
+                                   ids=ids, tags=tags)
+    assert got[0].shape == (n, 3) and got[1].shape == (n,)
+    assert_matches(got[:4], dense_reference(cfg, pos, age, w, cell, alive,
+                                            ids=ids, tags=tags, dims=dims))
+
+
+def test_kernel_lowers_to_triton_for_cuda(monkeypatch):
+    """Without interpret mode the kernel lowers through Pallas's Triton
+    route: the CUDA module holds the Triton custom call, no interpreter
+    loop over the grid."""
+    monkeypatch.setattr(nbk, "_interpret", lambda: False)
+    cfg = CONFIGS["sparse-g16"]
+    st = nbody.init_fill(cfg)
+    _, coords = wrap_positions(st.pos, cfg.grid)
+    cell = coords_to_cell(coords, cfg.grid)
+    fn = jax.jit(lambda p, a, w, c, al, t: nbk.neighbor_pass_blocks(
+        p, a, w, c, al, cfg, tags=t))
+    text = fn.trace(st.pos, st.age, st.w, cell, st.alive, st.tag).lower(
+        lowering_platforms=("cuda",)).as_text()
+    assert text.count("__gpu$xla.gpu.triton") == 1
+    assert "cluster_pair" in text
+
+
+def test_unsupported_backend_raises(monkeypatch):
+    """Only 'gpu' compiles and only 'cpu' interprets: any other backend is
+    refused instead of falling back to the interpreter."""
+    assert nbk._interpret() is True            # the CPU test backend
+    monkeypatch.setattr(nbk.jax, "default_backend", lambda: "gpu")
+    assert nbk._interpret() is False
+    monkeypatch.setattr(nbk.jax, "default_backend", lambda: "rocm")
+    with pytest.raises(NotImplementedError, match="impl='dense'"):
+        nbk._interpret()
 
 
 def test_out_of_band_coords_unique_past_wrap():
@@ -131,7 +183,7 @@ def test_out_of_band_coords_unique_past_wrap():
     cell = jnp.zeros((n,), jnp.int32)
     alive = (jnp.arange(n) % 2 == 0)           # half kid band, half dead band
     snap, *_ = nbk.prepare(pos, age, w, cell, alive, cfg, b=b)
-    coords = np.asarray(snap[4:7, :n])         # (3, N) — all out-of-band
+    coords = np.asarray(snap[nbk.I1:nbk.I3 + 1, :n])  # (3, N), out-of-band
     assert coords.max() < 0                    # nothing got in-band coords
     triples = coords.T.copy().view([("a", "f4"), ("b", "f4"), ("c", "f4")])
     assert len(np.unique(triples)) == n

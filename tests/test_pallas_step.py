@@ -1,8 +1,8 @@
-"""Fused Pallas kernel vs the reference XLA emitter step.
+"""Fused emitter step vs the reference emitter step.
 
-On CPU the kernel runs in interpreter mode; physics must match the XLA path
-(``models/emitter.step_core``) to float tolerance, and the PackedEngine with
-refresh_interval=1 must match it including slot allocation.
+Physics must match ``models/emitter.step_core`` to float tolerance, and the
+PackedEngine with refresh_interval=1 must match it including slot
+allocation.
 """
 
 import dataclasses
@@ -15,7 +15,6 @@ from particlesystem_tpu import Emitter, EmitterSceneConfig, PlaneCollider, Spher
 from particlesystem_tpu.core.state import ParticleState, pack_state, zero_state
 from particlesystem_tpu.models import emitter as em
 from particlesystem_tpu.ops import fused_step as fs
-from particlesystem_tpu.ops import pallas_step as ps
 from particlesystem_tpu.runtime.engine import PackedEngine
 
 CFG = EmitterSceneConfig(
@@ -54,21 +53,6 @@ def test_xla_kernel_matches_step_core():
     state = random_state(jax.random.key(0), CFG.slots)
     out = fs.physics_step(pack_state(state), CFG)
     ref = _ref_step(state)
-    for got, want, name in zip(out, ref, "x y z vx vy vz age life".split()):
-        np.testing.assert_allclose(np.asarray(got), np.asarray(want),
-                                   rtol=1e-5, atol=1e-5, err_msg=name)
-
-
-def test_pallas_kernel_matches_step_core():
-    # pallas path needs slots % (8*4096) == 0
-    n = 8 * 4096
-    state = random_state(jax.random.key(0), n)
-    out = ps.physics_step_pallas(pack_state(state), CFG)
-    spawn = em.SpawnRows(
-        pos=jnp.zeros((1, 3)), vel=jnp.zeros((1, 3)),
-        life=jnp.zeros((1,)), w=jnp.zeros((1,)),
-        valid=jnp.zeros((1,), jnp.bool_))
-    ref = pack_state(em.step_core(state, spawn, CFG))
     for got, want, name in zip(out, ref, "x y z vx vy vz age life".split()):
         np.testing.assert_allclose(np.asarray(got), np.asarray(want),
                                    rtol=1e-5, atol=1e-5, err_msg=name)

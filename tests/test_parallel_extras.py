@@ -61,8 +61,8 @@ def test_sharded_emitter_engine_scales(alloc, layout):
                                           ("strided", "slim"),
                                           ("select", "slim")])
 def test_sharded_emitter_matches_independent_locals(alloc, layout):
-    """Cross-device trajectory parity for the DP emitter engine (VERDICT r2
-    weak #7): the sharded step is, by construction, D independent local
+    """Cross-device trajectory parity for the DP emitter engine: the
+    sharded step is, by construction, D independent local
     engines with the device index folded into the spawn keys — so running
     those D local engines on the host must reproduce every device shard's
     trajectory.  This pins the shard_map plumbing (axis indexing, state
@@ -97,7 +97,7 @@ def test_sharded_emitter_matches_independent_locals(alloc, layout):
                                           ("select", "packed8"),
                                           ("select", "slim")])
 def test_sharded_emitter_step_many_matches_step(alloc, layout):
-    """DP batched loop (VERDICT r4 item 6): ``step_many(k)`` — one
+    """DP batched loop: ``step_many(k)`` — one
     dispatch, fori_loop inside the shard_map — must be bitwise-identical
     to ``k`` per-frame ``step()`` calls, and resume cleanly from a
     checkpoint (the single-chip engine's step/step_many equivalence,
@@ -140,8 +140,8 @@ def test_sharded_emitter_step_many_checkpoint_resume(tmp_path):
 @pytest.mark.parametrize("alloc,layout", [("ring", "packed8"),
                                           ("select", "slim")])
 def test_sharded_emitter_checkpoint_roundtrip(alloc, layout, tmp_path):
-    """Sharded emitter save/load facility parity with the n-body drivers
-    (VERDICT r3 #7): reload restores the exact sharded trajectory,
+    """Sharded emitter save/load facility parity with the n-body drivers:
+    reload restores the exact sharded trajectory,
     including per-device cursors; a different mesh width is refused."""
     import os
 

@@ -118,7 +118,7 @@ def test_nbody_profile_frame():
     sim = NBodySimulation(cfg, impl="blocks")
     sim.run(2)
     frame_before = sim.frame
-    out = sim.profile_frame(k1=1, k2=2)
+    out = sim.profile_frame(reps=1)
     assert set(out) == {"rng_fields", "cell_ids", "build_grid",
                         "calc_forces", "unsort", "lifecycle", "full_frame"}
     assert sim.frame == frame_before
@@ -127,7 +127,7 @@ def test_nbody_profile_frame():
     # with an active prefix set, stages profile the production (sliced)
     # shapes — models/nbody.step runs every stage on [0, active)
     sim._active = 1024
-    out = sim.profile_frame(k1=1, k2=2)
+    out = sim.profile_frame(reps=1)
     assert set(out) == {"rng_fields", "cell_ids", "build_grid",
                         "calc_forces", "unsort", "lifecycle", "full_frame"}
 
@@ -252,3 +252,27 @@ def test_nbody_validate_against_oracle():
     report = sim.validate(frames=3)
     assert report["events_match"]
     assert report["max_position_deviation"] < 1e-2
+
+
+def test_compile_cache_placement(monkeypatch):
+    """JAX_COMPILATION_CACHE_DIR wins and nothing is set in code; without
+    it the cache goes to <repo>/.jax_cache, never to a temporary path."""
+    import tempfile
+
+    import jax
+
+    from particlesystem_tpu.utils import compile_cache as cc
+
+    before = jax.config.jax_compilation_cache_dir
+    try:
+        monkeypatch.setenv(cc.ENV, "/elsewhere/cache")
+        assert cc.use_compile_cache() == "/elsewhere/cache"
+        assert jax.config.jax_compilation_cache_dir == before
+        monkeypatch.delenv(cc.ENV)
+        path = cc.use_compile_cache()
+        assert path == os.path.join(cc.REPO, ".jax_cache")
+        assert os.path.isfile(os.path.join(cc.REPO, "chip_smoke.py"))
+        assert jax.config.jax_compilation_cache_dir == path
+        assert not path.startswith(tempfile.gettempdir())
+    finally:
+        jax.config.update("jax_compilation_cache_dir", before)

@@ -6,9 +6,9 @@ Each process owns 4 virtual CPU devices; ``jax.distributed.initialize``
 reference is driven by the mpirun hostfile, ``/root/reference/makefile:3-4``)
 joins them into one 8-device global mesh.  ``PSTPU_DECOMP`` selects the
 decomposition (slab / pencil / brick); the mesh comes from
-``mesh.hybrid_mesh`` so the process (DCN-analog) split lands on the "x"
-axis while every other migration ring stays intra-process — the slice-
-placement rule production multi-slice runs follow.  Runs a few sharded
+``mesh.hybrid_mesh`` so the process (inter-node) split lands on the "x"
+axis while every other migration ring stays intra-process — the placement
+rule multi-node runs follow.  Runs a few sharded
 n-body steps over the GLOBAL mesh — 1-, 2- and 3-axis collectives cross the
 process boundary — and prints one JSON stats line for the parent to compare
 against the single-device run.
@@ -88,7 +88,7 @@ print("STATS " + json.dumps(out), flush=True)
 # gather() must ride process_allgather here (np.asarray cannot see the other
 # process's shards); validate() runs the production step against the numpy
 # oracle SHARD-LOCALLY — the counter wrapper below proves it never gathers
-# the device state across the process boundary (VERDICT r4 item 7); save()
+# the device state across the process boundary; save()
 # checkpoints without gathering either.
 import shutil  # noqa: E402
 import tempfile  # noqa: E402
@@ -138,7 +138,7 @@ print("DRIVER " + json.dumps({
 # -- sharded checkpoint across the process boundary --------------------------
 # Each process writes ONLY its own shards and reads ONLY the chunks that
 # intersect them; no full-state materialization anywhere on the save/load
-# path (VERDICT r3 item 4).  Proofs: (a) process_allgather is never invoked
+# path.  Proofs: (a) process_allgather is never invoked
 # during save/load (counter wrapper), (b) this process's shard file holds
 # about half the global bytes, never all of them, (c) the round-trip is
 # slot-EXACT on the local shards.

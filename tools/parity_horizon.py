@@ -9,8 +9,7 @@ frames; the remaining bound is float accumulation order (different row
 arrangements sum gravity in different orders — single-ulp noise that the
 chaotic system amplifies until a hard collision/threshold decision flips).
 This tool measures WHERE that actually bites so the parity tests and the
-``validate()`` default window can be sized to evidence instead of folklore
-(VERDICT r4 next-round item 4).
+``validate()`` default window can be sized to evidence instead of folklore.
 
 Run on the CPU backend (8 virtual devices):
 

@@ -1,96 +1,50 @@
-"""Stage-by-stage frame accounting for the n-body workload at any scale —
-the data behind the NOTES.md roofline tables (VERDICT r2 item 10 asked for
-the 10M/32^3 config, where sort cost at ~13M active rows and packing
-efficiency at the larger grid must be measured, not extrapolated).
+"""Stage-by-stage frame accounting for the n-body workload at any scale.
 
-Each stage is timed in its own subprocess by ``NBodySimulation.
-profile_frame`` (dispatch-count slope, host-readback sync), after settling
-the population onto the initial-cohort plateau.
+Settles the population for a few frames through ``NBodySimulation.run``
+(which re-buckets the active prefix to the live count), then times each
+stage with ``NBodySimulation.profile_frame``.
 
-Two modes:
-
-* default — profile from init at the fill-sized active prefix (the
-  shapes a fresh single-process run uses);
-* ``--plateau`` — the production two-phase flow (bench.py): warm 3 frames
-  + checkpoint in a CHILD process, then load here so ``api.load`` re-picks
-  the active prefix from the live plateau population, and profile THOSE
-  shapes (786k/2.10M at 1M, 4.98M/20.97M at 10M).
-
-Usage: python tools/roofline_nbody.py [n_fill_log2=20] [grid_dim=16] [--plateau]
-       python tools/roofline_nbody.py 10M --plateau   # 10*2^20 / 32^3 shortcut
+Usage: python tools/roofline_nbody.py [n_fill_log2=20] [grid_dim=16] [frames=10]
+       python tools/roofline_nbody.py 10M      # 10*2^20 / 32^3 shortcut
 """
 
 import json
 import os
-import subprocess
 import sys
-import tempfile
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import jax
-
-_cache = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                      ".jax_cache")
-jax.config.update("jax_compilation_cache_dir", _cache)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-
-from particlesystem_tpu.api import NBodySimulation
-from particlesystem_tpu.core.config import GridSpec, NBodyConfig
+from particlesystem_tpu.api import NBodySimulation  # noqa: E402
+from particlesystem_tpu.core.config import GridSpec, NBodyConfig  # noqa: E402
+from particlesystem_tpu.utils.compile_cache import use_compile_cache  # noqa: E402
 
 
 def _parse(argv):
-    pos = [a for a in argv if not a.startswith("--")]
-    if pos and pos[0].upper() == "10M":
-        n_fill, grid_dim = 10 << 20, 32
-    else:
-        n_fill = 1 << (int(pos[0]) if pos else 20)
-        grid_dim = int(pos[1]) if len(pos) > 1 else 16
-    return n_fill, grid_dim, "--plateau" in argv
+    if argv and argv[0].upper() == "10M":
+        return 10 << 20, 32, int(argv[1]) if len(argv) > 1 else 10
+    n_fill = 1 << (int(argv[0]) if argv else 20)
+    grid_dim = int(argv[1]) if len(argv) > 1 else 16
+    frames = int(argv[2]) if len(argv) > 2 else 10
+    return n_fill, grid_dim, frames
 
 
 def main():
-    if len(sys.argv) > 1 and sys.argv[1] == "--warm-to":
-        # child mode: settle onto the plateau and checkpoint (one process =
-        # one Pallas shape, utils/dispatchbug.py)
-        ckpt = sys.argv[2]
-        n_fill, grid_dim, _ = _parse(sys.argv[3:])
-        cfg = NBodyConfig(n_fill=n_fill, grid=GridSpec(grid_dim=grid_dim))
-        sim = NBodySimulation(cfg)
-        sim.run(3)
-        sim.save(ckpt)
-        print(f"warmed: alive={int(sim.last_stats.n_alive)}", flush=True)
-        return
-
-    n_fill, grid_dim, plateau = _parse(sys.argv[1:])
+    use_compile_cache()
+    n_fill, grid_dim, frames = _parse(sys.argv[1:])
     cfg = NBodyConfig(n_fill=n_fill, grid=GridSpec(grid_dim=grid_dim))
     sim = NBodySimulation(cfg)
-    with tempfile.TemporaryDirectory() as td:
-        if plateau:
-            ckpt = os.path.join(td, "plateau.npz")
-            proc = subprocess.run(
-                [sys.executable, os.path.abspath(__file__), "--warm-to",
-                 ckpt, *sys.argv[1:]],
-                cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-            if proc.returncode != 0:
-                raise RuntimeError("warm phase failed")
-            sim.load(ckpt)  # fresh process: re-picks the active prefix
-        print(f"n_fill={n_fill} grid={grid_dim}^3 slots={cfg.slots} "
-              f"active={sim._active or cfg.slots} frame={sim.frame}",
-              flush=True)
-        if not plateau:
-            sim.run(3)
-        import numpy as np
-        alive = int(np.asarray(sim.state.alive).sum())
-        print(f"settled: alive={alive}", flush=True)
-        stages = sim.profile_frame()
+    sim.run(frames)
+    alive = int(sim.last_stats.n_alive)
+    print(f"n_fill={n_fill} grid={grid_dim}^3 slots={cfg.slots} "
+          f"active={sim._active or cfg.slots} frame={sim.frame} "
+          f"alive={alive}", flush=True)
+    stages = sim.profile_frame()
     total = sum(v for k, v in stages.items() if k != "full_frame")
     for k, v in stages.items():
         print(f"  {k:14s} {v:8.2f} ms", flush=True)
     print(f"  {'stage sum':14s} {total:8.2f} ms")
     print(json.dumps({"n_fill": n_fill, "grid_dim": grid_dim,
-                      "plateau": plateau,
-                      "active": sim._active or cfg.slots,
+                      "frame": sim.frame, "active": sim._active or cfg.slots,
                       "alive": alive, **stages}))
 
 
